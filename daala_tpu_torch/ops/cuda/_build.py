@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: dict = {}
-_LOCK = threading.Lock()
+_LOCKS: dict = {}  # source name -> its lock, so sources build in parallel
+_LOCK = threading.Lock()  # guards _LOCKS
 
 
 def _nvcc():
@@ -56,10 +57,13 @@ def _digest(name):
     return h.hexdigest()[:16]
 
 
-def load(name, argtypes):
-    """The ctypes library built from csrc/<name>.cu, with the entry point
-    `name` declared as `int name(*argtypes)`.  Builds on first use."""
+def load(name, entries):
+    """The ctypes library built from csrc/<name>.cu, with each entry
+    point `fn` of `entries` ({fn: argtypes}) declared as
+    `int fn(*argtypes)`.  Builds on first use."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -67,9 +71,10 @@ def load(name, argtypes):
         if not os.path.exists(so):
             _compile(name, so)
         lib = ctypes.CDLL(so)
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in entries.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
         return lib
 

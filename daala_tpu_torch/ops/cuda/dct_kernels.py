@@ -56,7 +56,7 @@ def _check(frame, n):
 
 def build():
     """Build (first use) and load csrc/dct_frame.cu; returns the library."""
-    return _build.load(NAME, _ARGTYPES)
+    return _build.load(NAME, {NAME: _ARGTYPES})
 
 
 def dct_frame_cuda(frame, n, forward=True):

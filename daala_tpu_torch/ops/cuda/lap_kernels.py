@@ -86,7 +86,7 @@ def _check(frame, sb_x, sb_y):
 
 def build():
     """Build (first use) and load csrc/lap_frame.cu; returns the library."""
-    return _build.load(NAME, _ARGTYPES)
+    return _build.load(NAME, {NAME: _ARGTYPES})
 
 
 def lap_frame_cuda(frame, sb_x=64, sb_y=64, forward=True):

@@ -77,15 +77,16 @@ def upload(array, device):
 
 
 def dispatch():
-    """Count one device dispatch (one analysis call on one plane)."""
+    """Count one device dispatch (one analysis call on one plane, or one
+    batch of OBMC leaves)."""
     STATS["dispatches"] += 1
 
 
-def fetch(t):
-    """The int32 numpy copy of tensor t, counting device->host bytes and
-    the wall time spent waiting for them."""
+def fetch(t, dtype=torch.int32):
+    """The numpy copy of tensor t, as `dtype` (None keeps t's), counting
+    device->host bytes and the wall time spent waiting for them."""
     t0 = time.perf_counter()
-    a = t.detach().to("cpu", torch.int32).numpy()
+    a = t.detach().to("cpu", dtype or t.dtype).numpy()
     if t.device.type != "cpu":
         STATS["d2h_bytes"] += a.nbytes
         STATS["fetch_wall_s"] += time.perf_counter() - t0

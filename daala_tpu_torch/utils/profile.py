@@ -3,17 +3,18 @@
 Usage, from the repository root on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and g++:
 
-    python -m daala_tpu_torch.utils.profile [--out DIR]
+    python -m daala_tpu_torch.utils.profile [--out DIR] [--sweep]
 
 It encodes bench.py's 1920x1080 translation clip (4 frames, quant 25,
 complexity 7, the production trial-pass preset, encoder check on)
-through daala_tpu_torch's Encoder on the card, and prints:
+through daala_tpu_torch's Encoder on the card (with --sweep, in
+mv_refine_mode="sweep"), and prints:
 
 1. the card's name and power limit (nvidia-smi);
 2. per frame, after one warm-up encode of the clip, REPS times: the
    host wall of `encode_frame` and the devstats counters of that frame
-   (the `analyze_*` spans, fetch wall, host<->device bytes, kernel
-   launches);
+   (the `analyze_*` and `refine_sweep` spans, fetch wall, host<->device
+   bytes, kernel launches);
 3. a torch.profiler trace of a fresh encoder's keyframe and first inter
    frame, written as Chrome traces into `--out` and read back: the
    frame's wall, the device's busy time (the union of its kernel and
@@ -39,7 +40,8 @@ W, H, NFRAMES = 1920, 1080, 4
 ENCODER_KW = dict(quant=25, complexity=7, trial_rate_approx=True,
                   trial_prune_boost=3.0, trial_prune_rate_gate=0.5)
 # Name fragments of the kernels in csrc/ (their __global__ functions).
-HAND_KERNELS = ("dct_frame_kernel", "lap_copy_pass", "lap_band_pass")
+HAND_KERNELS = ("dct_frame_kernel", "lap_copy_pass", "lap_band_pass",
+                "obmc_blend_kernel", "obmc_leaf_cells_kernel")
 REPS = 2  # timed encodes of the clip after the warm-up
 
 
@@ -99,27 +101,28 @@ def device_summary(events, wall_s):
     return out
 
 
-def _encoder(device):
+def _encoder(device, sweep):
     from daala_tpu.codec import headers
     from daala_tpu_torch.codec.encoder import Encoder
     enc = Encoder(headers.Info(pic_width=W, pic_height=H), device=device,
+                  mv_refine_mode="sweep" if sweep else "greedy",
                   **ENCODER_KW)
     enc.keyframe_rate = 256
     enc.enable_encoder_check = True
     return enc
 
 
-def per_frame(frames, device):
+def per_frame(frames, device, sweep):
     """Host wall and devstats counters of every frame, REPS encodes of
     the clip after a warm-up encode."""
     from daala_tpu_torch.utils import devstats
-    warm = _encoder(device)
+    warm = _encoder(device, sweep)
     for fr in frames:
         warm.encode_frame(fr)
     warm.flush()
     rows = []
     for rep in range(REPS):
-        enc = _encoder(device)
+        enc = _encoder(device, sweep)
         for i, fr in enumerate(frames):
             devstats.reset()
             t0 = time.perf_counter()
@@ -128,7 +131,9 @@ def per_frame(frames, device):
             wall = time.perf_counter() - t0
             snap = devstats.snapshot()
             row = {"rep": rep, "frame": i, "wall_s": wall,
-                   "front_end_s": sum(snap["spans_s"].values()), **snap}
+                   "front_end_s": sum(v for k, v in snap["spans_s"].items()
+                                      if k.startswith("analyze_")),
+                   **snap}
             row["front_end_share"] = row["front_end_s"] / wall
             rows.append(row)
             print("rep %d frame %d wall %.4f s; front end %.4f s (%.2f%%); "
@@ -142,11 +147,11 @@ def per_frame(frames, device):
     return rows
 
 
-def traced(frames, device, out_dir):
+def traced(frames, device, out_dir, sweep):
     """torch.profiler traces of a fresh encoder's keyframe and first
     inter frame; returns their device summaries."""
     from torch.profiler import ProfilerActivity, profile
-    enc = _encoder(device)
+    enc = _encoder(device, sweep)
     res = {}
     for label, fr in (("keyframe", frames[0]), ("inter", frames[1])):
         with profile(activities=[ProfilerActivity.CPU,
@@ -178,6 +183,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join("build", "profile"),
                     help="directory for the Chrome traces")
+    ap.add_argument("--sweep", action="store_true",
+                    help='encode with mv_refine_mode="sweep"')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: torch sees no CUDA device", file=sys.stderr)
@@ -191,10 +198,10 @@ def main(argv=None):
     print(card)
     os.makedirs(args.out, exist_ok=True)
     frames = translation_clip()
-    rows = per_frame(frames, device)
-    traces = traced(frames, device, args.out)
-    print(json.dumps({"card": card, "frames": rows, "traces": traces},
-                     sort_keys=True))
+    rows = per_frame(frames, device, args.sweep)
+    traces = traced(frames, device, args.out, args.sweep)
+    print(json.dumps({"card": card, "sweep": args.sweep, "frames": rows,
+                      "traces": traces}, sort_keys=True))
     return 0
 
 

@@ -1,6 +1,8 @@
 """Tests of the port that need a CUDA card: the kernels against their
 plain versions at the encoder's 1080p shapes, launch-error reporting,
-and the encoder on the card against the host encoder.
+the device OBMC predictor against the host's, and the encoder on the
+card against the host encoder and (in sweep mode) against itself on the
+CPU.
 
 Every test here is marked `cuda` and skips without a card.  This file
 imports no jax, so it also runs on a card's host that has none:
@@ -12,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (PaddedImage, random_grid, random_leaves,
+                        random_refs, textured_clip)
 from daala_tpu import native
 from daala_tpu.codec import headers
+from daala_tpu.codec import mc as MC
 from daala_tpu.codec.encoder import Encoder as HostEncoder
 from daala_tpu_torch.codec.encoder import Encoder
-from daala_tpu_torch.ops.cuda import _build, dct_kernels, lap_kernels
+from daala_tpu_torch.models import obmc as OB
+from daala_tpu_torch.ops.cuda import (_build, dct_kernels, lap_kernels,
+                                      obmc_kernels as OK)
 from daala_tpu_torch.utils import devstats
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +112,94 @@ def test_encoder_on_card_matches_host(card):
     launches = devstats.snapshot()["launches"]
     assert launches.get("dct_frame", 0) > 0
     assert launches.get("lap_frame", 0) > 0
+
+
+LUMA = (1088 + 128, 1920 + 128)  # the padded 1080p luma plane
+
+
+def _obmc_case(card, log_x, log_y, hi, seed, count=2000):
+    rng = np.random.default_rng(seed)
+    p4 = rng.integers(0, 4096 if hi else 256, (4,) + LUMA)
+    p4 = torch.from_numpy(p4.astype(np.uint16 if hi else np.uint8)).to(card)
+    leaves = random_leaves(rng, log_x, log_y, LUMA, 64, count)
+    scal = OK.leaf_args(*leaves, 64, log_x, log_y, LUMA)
+    return p4, torch.from_numpy(scal).to(card), rng
+
+
+@pytest.mark.parametrize("hi", [False, True])
+@pytest.mark.parametrize("log_x,log_y", [(2, 2), (3, 3), (4, 4), (5, 5),
+                                         (6, 6), (4, 3)])
+def test_obmc_blend_kernel_matches_plain(card, log_x, log_y, hi):
+    p4, scal, _ = _obmc_case(card, log_x, log_y, hi, log_x + 8 * hi)
+    got = OK.obmc_blend_cuda(p4, scal, log_x, log_y)
+    assert got.dtype == p4.dtype
+    want = OK.obmc_blend_plain(p4, scal, log_x, log_y)
+    assert torch.equal(OK.bits(got), OK.bits(want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("log_n", [3, 4, 5, 6])
+def test_obmc_leaf_cells_kernel_matches_plain(card, log_n):
+    """A ragged visible area: rows past 1080, columns past 1900."""
+    p4, scal, rng = _obmc_case(card, log_n, log_n, False, log_n)
+    cur = torch.from_numpy(rng.integers(0, 256, (1080, 1900))
+                           .astype(np.uint8)).to(card)
+    got = OK.obmc_leaf_cells_cuda(p4, cur, scal, log_n)
+    assert torch.equal(got, OK.obmc_leaf_cells_plain(p4, cur, scal, log_n))
+    torch.cuda.synchronize()
+
+
+def test_obmc_launch_error_is_reported(card):
+    lib = OK.build()
+    p4, scal, _ = _obmc_case(card, 3, 3, False, 1, count=4)
+    out = torch.empty((4, 8, 8), dtype=torch.uint8, device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for (n, log_n) in ((0, 3), (4, 7)):
+        err = lib.obmc_blend(p4.data_ptr(), 0, LUMA[0], LUMA[1],
+                             scal.data_ptr(), n, log_n, log_n,
+                             out.data_ptr(), stream)
+        assert err != 0, (n, log_n)
+        with pytest.raises(RuntimeError):
+            _build.check(err, OK.BLEND)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("hi", [False, True])
+def test_frame_plane_on_card_matches_host(card, hi):
+    """8-bit P-frame references; 12-bit full-precision B-frame ones."""
+    info = headers.Info(pic_width=192, pic_height=128,
+                        bitdepth_mode=2 if hi else 1,
+                        full_precision_references=int(hi))
+    rng = np.random.default_rng(3 + hi)
+    dt = np.uint16 if hi else np.uint8
+    refs = random_refs(info, rng, hi)
+    ref_imgi = [0, 0, 1, 0] if hi else [0, 1, 1, 0]
+    g = random_grid(info, rng, bframe=hi)
+    dst = PaddedImage(info, lambda s: np.zeros(s, dt))
+    MC.mc_predict_frame(g, refs, ref_imgi, info, dst)
+    devstats.reset()
+    for pli in range(3):
+        got = OB.predict_frame_plane_device(g, refs, ref_imgi, info, pli,
+                                            card)
+        assert np.array_equal(got, dst.plane_view(pli)), pli
+    assert devstats.snapshot()["launches"].get(OK.BLEND, 0) > 0
+
+
+def test_sweep_encode_on_card_matches_cpu(card):
+    """The colour sweep on the card and on the CPU: byte-identical
+    packets, encoder check on, with leaves of 16, 32 and 64 pixels."""
+    if native.get_lib() is None:
+        pytest.fail("the native engine did not build")
+    frames = textured_clip(640, 368, 4)
+    pk = {}
+    for dev in (card, "cpu"):
+        enc = Encoder(headers.Info(pic_width=640, pic_height=368),
+                      device=dev, quant=25, complexity=7,
+                      mv_refine_mode="sweep")
+        enc.enable_encoder_check = True
+        devstats.reset()
+        pk[str(dev)] = [bytes(p) for fr in frames
+                        for p in enc.encode_frame(fr)]
+        if dev is card:
+            assert devstats.snapshot()["launches"].get(OK.CELLS, 0) > 0
+    assert pk[str(card)] == pk["cpu"]

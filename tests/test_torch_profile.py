@@ -56,3 +56,22 @@ def test_devstats_span_accumulates():
     assert set(s) == {"x", "y"} and s["x"] >= 0 and s["y"] >= 0
     devstats.reset()
     assert devstats.snapshot()["spans_s"] == {}
+
+
+def test_hand_kernels_name_every_kernel():
+    """Every __global__ function of csrc/ is counted as a hand kernel in
+    the traces."""
+    import glob
+    import os
+    import re
+    from daala_tpu_torch.utils.profile import HAND_KERNELS
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "daala_tpu_torch", "csrc")
+    names = set()
+    for path in glob.glob(os.path.join(csrc, "*.cu")):
+        with open(path) as f:
+            names |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)", f.read()))
+    assert len(names) >= 5
+    assert all(any(k in n for k in HAND_KERNELS) for n in names), names
