@@ -8,36 +8,50 @@ CUDA toolkit (nvcc) and g++:
 
 Phases, each printing its lines; any failure raises and exits nonzero:
 
-1. Environment: the card's name and power limit (nvidia-smi), torch and
-   CUDA versions; builds the native host engine and the three CUDA
-   sources (lap_frame, dct_frame, obmc_leaf; into build/, first use
-   only, all nvcc runs at once) and prints each build's seconds.
+1. Environment: the card's name and power limit (nvidia-smi), its
+   maximum SM clock, torch and CUDA versions; builds the port's native
+   host engine and the three CUDA sources (lap_frame, dct_frame, obmc_leaf;
+   into build/, first use only, all nvcc runs at once) and prints each
+   build's seconds and ptxas's registers, stack and spills of every
+   kernel instantiation.
 2. Kernel vs plain PyTorch version, on the card, at the 1080p encoder's
    shapes: lap_frame forward and inverse on a (1088, 1920) luma plane
    (superblock 64) and a (544, 960) chroma plane (superblock 32);
    dct_frame forward and inverse at n = 4..64 on luma and n = 4..32 on
    chroma.  Inputs are int32 in +-2^14 from a seed.  Each kernel must
    equal its plain version bit for bit and inverse(forward(x)) == x.
-   Times are CUDA-event medians over batches of launches.
+   Every timed call finds the 50 MB L2 cold (`flush_l2` before it), as
+   the main path does: CUDA-event times of calls through the wrapper
+   ("kernel"), the kernels' own device time from a torch.profiler trace
+   ("device") and the bound (see `bound`).
 2b. The OBMC kernels against their plain versions, on the padded 1080p
    luma plane (4, 1216, 2048) and a chroma plane (4, 608, 1024), with
    random leaves tiling the plane (random slots, MVs in +-256 1/8-pel,
    all 16 blend setups (oc, s)): obmc_blend at n = 8..64 on luma and
    n = 4..32 on chroma, 8-bit and 12-bit; obmc_leaf_cells at n = 8..64
-   on luma against a 1920x1080 visible area (ragged below).  Bit for
-   bit; times as in phase 2.
+   on luma against a 1920x1080 visible area (ragged below); both kernels
+   on a sweep-shaped batch (`sweep_leaves`: the 510 n = 64 leaves tiling
+   the luma plane, each repeated 8 times with one corner's MV moved by
+   up to +-16 1/8-pel, 4,080 rows).  Bit for bit; times as in phase 2.
+   Then, checked and not timed: obmc_blend at all 25 (n_x, n_y) pairs
+   and both depths; L = 1 and a ragged L at every square size; leaves
+   whose windows touch the planes' four edges; the planes of a 177x115
+   frame (320 and 160 bytes wide: rows 16-byte but not 64-byte
+   aligned); obmc_leaf_cells likewise; and a misaligned plane, which
+   the wrappers refuse.
 2c. Device OBMC prediction: models/obmc.py predict_frame_plane_device on
-   the card against the host predictor (codec/mc.py mc_predict_frame)
-   on a random 1080p mesh with every subdivision level, all three
+   the card against the host predictor (the port's numpy copy of it,
+   codec/mc.py mc_predict_frame) on a random 1080p mesh with every subdivision level, all three
    planes, 8-bit P-frame references and 12-bit full-precision B-frame
    references.  Equal planes; obmc_blend must have launched.
 3. The encoder end to end: bench.py's 1920x1080 translation clip, 4
    frames, quant 25, complexity 7, the production trial-pass preset,
-   encoded with daala_tpu_torch's Encoder(device="cuda") (encoder check
-   on: every packet is decoded and its reconstruction compared) and
-   with daala_tpu's host Encoder at the same settings.  The packets must
-   be byte-identical, and both analysis kernels must have launched in
-   the port's run (launch counts are reset just before it).
+   encoded with daala_tpu_torch's Encoder on "cuda" (encoder check on:
+   every packet is decoded and its reconstruction compared) and on
+   "cpu", where the kernels' plain versions run (the CPU tests hold that
+   run's packets to daala_tpu's host encoder).  The packets must be
+   byte-identical, and both analysis kernels must have launched in the
+   card's run (launch counts are reset just before it).
 4. The colour-sweep encode (mv_refine_mode="sweep", encoder check on):
    (a) a textured 640x368 clip whose mesh subdivides, 4 frames, quant
    25, complexity 7, through the port's Encoder on "cuda" and on "cpu":
@@ -47,8 +61,8 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    both card runs.
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
-   obmc_leaf_cells from phase 4b), error and times; then, as the last
-   line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   obmc_leaf_cells from phase 4b), error, times and bound; then, as the
+   last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
 
 Without a CUDA device, or without the repository beside it, it exits
@@ -67,10 +81,10 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD = os.path.join(HERE, "build", "daala_tpu_torch")
 
 SEED = 0
 BATCH, REPEATS = 20, 5  # timing: REPEATS batches of BATCH launches
-OD_BUFFER_PADDING = 64  # daala_tpu/codec/mc.py
 
 
 def random_leaves(rng, log_x, log_y, plane_shape, pad, count=None):
@@ -87,21 +101,65 @@ def random_leaves(rng, log_x, log_y, plane_shape, pad, count=None):
     n = len(cells)
     pos = np.stack([cells // gx * ny, cells % gx * nx], 1)
     srcs = rng.integers(0, 4, (n, 4))
-    mvs = rng.integers(-256, 257, (n, 4, 2))
-    for axis, size, span in ((0, hp, ny), (1, wp, nx)):
-        org = pad + pos[:, axis:axis + 1] - 2  # window start at MV 0
-        mvs[:, :, 1 - axis] = np.clip(mvs[:, :, 1 - axis], -8 * org,
-                                      8 * (size - span - 5 - org) + 7)
+    mvs = clip_mvs(rng.integers(-256, 257, (n, 4, 2)), pos, log_x, log_y,
+                   plane_shape, pad)
     k = np.arange(n)
     return (pos.astype(np.int32), srcs.astype(np.int32),
             mvs.astype(np.int32), (k % 4).astype(np.int32),
             (k // 4 % 4).astype(np.int32))
 
 
+def clip_mvs(mvs, pos, log_x, log_y, plane_shape, pad):
+    """mvs (L, 4, 2) [mvx, mvy] clipped so that every corner window of
+    the leaves at pos (L, 2) stays inside a padded (Hp, Wp) plane."""
+    mvs = np.array(mvs, np.int64)
+    for axis, size, span in ((0, plane_shape[0], 1 << log_y),
+                             (1, plane_shape[1], 1 << log_x)):
+        org = pad + pos[:, axis:axis + 1] - 2  # window start at MV 0
+        mvs[:, :, 1 - axis] = np.clip(mvs[:, :, 1 - axis], -8 * org,
+                                      8 * (size - span - 5 - org) + 7)
+    return mvs
+
+
+def edge_leaves(rng, log_x, log_y, plane_shape, pad):
+    """Leaves at the four corner tiles of the plane whose corner windows
+    lie at the extremes: corner k's window touches the right edge when
+    k & 1 and the left one otherwise, the bottom edge when k & 2 and the
+    top one otherwise (MVs with random subpel phases)."""
+    hp, wp = plane_shape
+    nx, ny = 1 << log_x, 1 << log_y
+    ys, xs = (0, hp - 2 * pad - ny), (0, wp - 2 * pad - nx)
+    pos = np.array([(y, x) for y in ys for x in xs], np.int64)
+    k = np.arange(4)
+    mvs = np.empty((4, 4, 2), np.int64)
+    mvs[:, :, 0] = np.where(k & 1, 1 << 20, -(1 << 20))
+    mvs[:, :, 1] = np.where(k & 2, 1 << 20, -(1 << 20))
+    mvs = clip_mvs(mvs, pos, log_x, log_y, plane_shape, pad)
+    # The window is placed by mv >> 3; any subpel phase keeps it there.
+    mvs = mvs & ~7 | rng.integers(0, 8, mvs.shape)
+    return (pos.astype(np.int32), rng.integers(0, 4, (4, 4)).astype(np.int32),
+            mvs.astype(np.int32), k.astype(np.int32),
+            rng.integers(0, 4, 4).astype(np.int32))
+
+
+def sweep_leaves(rng, plane_shape, pad, copies=8, reach=16):
+    """A batch shaped like one of refine_sweep's (codec/mvest.py builds
+    it with np.repeat): the n = 64 leaves tiling the plane, each
+    repeated `copies` times in a row, each copy with one corner's MV
+    (in turn) moved by up to +-reach 1/8-pel."""
+    leaves = random_leaves(rng, 6, 6, plane_shape, pad)
+    pos, srcs, mvs, ocs, ss = (np.repeat(a, copies, 0) for a in leaves)
+    rows = np.arange(len(pos))
+    mvs = mvs.astype(np.int64)
+    mvs[rows, rows % 4] += rng.integers(-reach, reach + 1, (len(pos), 2))
+    mvs = clip_mvs(mvs, pos, 6, 6, plane_shape, pad)
+    return pos, srcs, mvs.astype(np.int32), ocs, ss
+
+
 def random_grid(info, rng, levels=3, bframe=False):
     """A random MV mesh with every subdivision level (a copy of
     tests/test_obmc_device.py _random_grid)."""
-    from daala_tpu.codec import mc as MC
+    from daala_tpu_torch.codec import mc as MC
     nh = info.frame_width >> 3
     nv = info.frame_height >> 3
     g = MC.MVGrid(nh, nv)
@@ -156,22 +214,173 @@ def textured_clip(w, h, n, seed=5):
     return frames
 
 
+_L2_FLUSH = []
+
+
+def flush_l2(torch):
+    """Overwrite the card's 50 MB L2 with a 128 MB fill, so that the next
+    call reads its inputs from HBM and its writes evict dirty lines, as
+    on the main path, where each call's planes arrive fresh."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(128 << 20, dtype=torch.uint8,
+                                     device="cuda"))
+    _L2_FLUSH[0].fill_(1)
+
+
 def batch_ms(torch, fn):
-    """Median over REPEATS of (CUDA-event time of BATCH calls) / BATCH."""
+    """Median over REPEATS of the mean CUDA-event time of BATCH calls,
+    each timed alone after flush_l2."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(REPEATS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        events = []
         for _ in range(BATCH):
+            flush_l2(torch)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / BATCH)
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        out.append(sum(a.elapsed_time(b) for a, b in events) / BATCH)
     return statistics.median(out)
+
+
+def trace_ms(torch, fn, names, calls=10, tries=3):
+    """Device time per call of fn from a torch.profiler trace of `calls`
+    calls, each after flush_l2: for each kernel whose name holds one of
+    `names`, its mean duration times its launches per call.  Returns
+    (ms, events seen, calls); a trace that shows none of the kernels is
+    taken again, up to `tries` times, and then ms is None."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    os.makedirs(BUILD, exist_ok=True)
+    path = os.path.join(BUILD, "kernel_trace.json")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush_l2(torch)
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        events = trace["traceEvents"] if isinstance(trace, dict) else trace
+        durs = {}
+        for e in events:
+            name = e.get("name", "")
+            if e.get("cat") == "kernel" and any(n in name for n in names):
+                durs.setdefault(name, []).append(e["dur"])
+        if durs:
+            ms = sum(statistics.mean(d) / 1e3 * max(1, round(len(d) / calls))
+                     for d in durs.values())
+            return ms, sum(map(len, durs.values())), calls
+    return None, 0, calls
+
+
+# The bound of a call: the larger of its bytes over the card's memory
+# rate and its int32 operations over 132 SMs x 64 int32 lanes x the
+# maximum SM clock that nvidia-smi reads (phase 1 sets "ops_per_s").
+# Input bytes count once and output bytes once; operations are counted
+# from the code (the functions below).
+RATES = {"bytes_per_s": 3.35e12, "ops_per_s": None}
+SM_INT32_LANES = 132 * 64
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations") of a call that moves nbytes and
+    does ops int32 operations."""
+    b_ms = nbytes / RATES["bytes_per_s"] * 1e3
+    o_ms = ops / RATES["ops_per_s"] * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def lifting_ops(name):
+    """Operations of one lifting network of daala_tpu_torch/ops/
+    _lifting.py: each operator once, each dct_rshift or c_div call as 4
+    (its add, sign, mask and shift)."""
+    import ast
+    with open(os.path.join(HERE, "daala_tpu_torch", "ops",
+                           "_lifting.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    return sum(1 if isinstance(n, (ast.BinOp, ast.UnaryOp)) else 4
+               for n in ast.walk(fn)
+               if isinstance(n, (ast.BinOp, ast.UnaryOp, ast.Call)))
+
+
+def dct_work(h, w, n, forward):
+    """(bytes, ops) of dct_frame on an (h, w) int32 plane: the plane read
+    and written once; 2n one-dimensional networks per n x n block."""
+    net = lifting_ops(("fdct%d" if forward else "idct%d") % n)
+    return 8 * h * w, h * w // (n * n) * 2 * n * net
+
+
+def lap_work(h, w, sb, forward):
+    """(bytes, ops) of lap_frame on an (h, w) int32 plane: the plane read
+    and written once; one 4-point network per column across every inner
+    superblock row edge and per row across every column edge."""
+    net = lifting_ops("pre_filter4" if forward else "post_filter4")
+    return 8 * h * w, ((h // sb - 1) * w + (w // sb - 1) * h) * net
+
+
+def covered(shape, starts, sizes):
+    """Pixels of an array of `shape` (leading dims, h, w) covered by the
+    union of the boxes [y, y + hy) x [x, x + wx), clipped to the array,
+    at starts (N, ndim)."""
+    cov = np.zeros(tuple(shape[:-2]) + (shape[-2] + 1, shape[-1] + 1),
+                   np.int32)
+    lead = tuple(starts[:, i] for i in range(len(shape) - 2))
+    y0, x0 = starts[:, -2], starts[:, -1]
+    y1 = np.minimum(y0 + sizes[0], shape[-2])
+    x1 = np.minimum(x0 + sizes[1], shape[-1])
+    keep = (y0 < shape[-2]) & (x0 < shape[-1])
+    for y, x, v in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1), (y1, x1, 1)):
+        np.add.at(cov, tuple(a[keep] for a in lead + (y, x)), v)
+    return int((cov.cumsum(-2).cumsum(-1)[..., :-1, :-1] > 0).sum())
+
+
+def obmc_work(scal, log_x, log_y, plane_shape, itemsize, cur_shape=None):
+    """(bytes, ops) of obmc_blend (cur_shape None) or obmc_leaf_cells on
+    the leaves packed in scal (numpy (L, 16)).
+
+    Bytes: the plane pixels that the corner windows cover (each once),
+    the leaf arguments, and the blocks written, or for the cells the
+    visible current pixels the leaves cover and the cell sums written.
+
+    Operations are int32-lane instructions of the least sequence for
+    the types: a multiply-add of an 8-bit sample by an 8-bit tap counts
+    1/4 (dp4a does 4), of a 16-bit value by an 8-bit tap 1/2 (dp2a), of
+    two 32-bit values 1.  Per leaf and corner: every horizontal sample
+    ((ny + 5) x nx of them) 6 multiply-adds and the offset, plus the
+    int16 wrap at 8 bits (3.5; 4 at 12 bits); every pixel 6 vertical
+    multiply-adds of the 16-bit (8-bit input) or 32-bit (12-bit)
+    samples, the rounding, the shift and 2 clips (7; 10).  Then per
+    pixel 9 for the blend (4 weight steps and products, the shift), and
+    for the cells 3 more on each visible pixel (difference, magnitude,
+    sum)."""
+    L = scal.shape[0]
+    nx, ny = 1 << log_x, 1 << log_y
+    wins = np.stack([scal[:, 0:4], scal[:, 4:8], scal[:, 8:12]],
+                    -1).reshape(-1, 3)
+    nbytes = covered((4,) + tuple(plane_shape), wins,
+                     (ny + 5, nx + 5)) * itemsize + 64 * L
+    h_ops, v_ops = (3.5, 7) if itemsize == 1 else (4, 10)
+    ops = int(L * (4 * (h_ops * (ny + 5) * nx + v_ops * nx * ny)
+                   + 9 * nx * ny))
+    if cur_shape is None:
+        return nbytes + L * nx * ny * itemsize, ops
+    vh, vw = cur_shape
+    vis = (np.clip(vh - scal[:, 13], 0, ny).astype(np.int64)
+           * np.clip(vw - scal[:, 14], 0, nx))
+    nbytes += covered(cur_shape, scal[:, 13:15], (ny, nx))
+    return nbytes + L * (nx >> 3) * (ny >> 3) * 4, ops + 3 * int(vis.sum())
 
 
 def phase_environment(torch):
@@ -180,12 +389,20 @@ def phase_environment(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
-    print("env: python %s torch %s cuda %s device %s"
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    RATES["ops_per_s"] = SM_INT32_LANES * mhz * 1e6
+    print("env: python %s torch %s cuda %s device %s; max SM clock %.0f MHz:"
+          " bound rates %.4g int32 op/s, %.4g B/s"
           % (sys.version.split()[0], torch.__version__, torch.version.cuda,
-             torch.cuda.get_device_name(0)))
+             torch.cuda.get_device_name(0), mhz, RATES["ops_per_s"],
+             RATES["bytes_per_s"]))
     from concurrent.futures import ThreadPoolExecutor
-    from daala_tpu import native
-    from daala_tpu_torch.ops.cuda import dct_kernels, lap_kernels, obmc_kernels
+    from daala_tpu_torch import native
+    from daala_tpu_torch.ops.cuda import (_build, dct_kernels, lap_kernels,
+                                          obmc_kernels)
     from daala_tpu_torch.utils import devstats
 
     def native_lib():
@@ -203,22 +420,51 @@ def phase_environment(torch):
           % (lap_kernels.NAME, dct_kernels.NAME, obmc_kernels.SOURCE,
              time.perf_counter() - t0,
              {k: round(v, 1) for k, v in devstats.BUILDS.items()}))
+    for src, text in sorted(_build.PTXAS.items()):
+        for fn, regs, stack, st, ld in _build.ptxas_report(text):
+            print("ptxas: %s: %d registers, %d bytes stack, spills %d/%d "
+                  "bytes (store/load): %s" % (src, regs, stack, st, ld, fn))
+    for hi, cells, pairs in (
+            (False, True, [(n, n) for n in range(3, 7)]),
+            (False, False, [(x, y) for x in range(2, 7) for y in range(2, 7)]),
+            (True, False, [(x, y) for x in range(2, 7) for y in range(2, 7)])):
+        print("plan: %s: %s" % (
+            "obmc_leaf_cells" if cells else "obmc_blend %d-bit"
+            % (12 if hi else 8), "; ".join(
+                "%dx%d %s" % (1 << x, 1 << y, " ".join(
+                    str(v) for v in obmc_kernels.plan_info(x, y, hi,
+                                                           cells).values()))
+                for x, y in pairs)))
+    print("plan: (nx x ny: threads, leaves per block, copy bytes, shared "
+          "bytes, blocks per SM, rows per thread)")
 
 
-def record(torch, res, name, label, kern, plain):
-    """Time kern and plain (CUDA events) and hold kern's output to
-    plain's, bit for bit."""
+def record(torch, res, name, label, kern, plain, work, trace_names):
+    """Time kern (CUDA events through the wrapper, and its kernels'
+    device time in a profiler trace) and plain (CUDA events), each call
+    with a cold L2, hold kern's output to plain's bit for bit, and add
+    the bound of `work` (bytes, ops)."""
     from daala_tpu_torch.ops.cuda.obmc_kernels import bits
     err = int((bits(kern()).long() - bits(plain()).long()).abs().max().item())
     k_ms, p_ms = batch_ms(torch, kern), batch_ms(torch, plain)
+    d_ms, seen, calls = trace_ms(torch, kern, trace_names)
+    b_ms, by = bound(*work)
     r = res.setdefault(name, dict(max_abs_err=0, ms=0.0, plain_ms=0.0,
-                                  variants=0))
+                                  device_ms=0.0, bound_ms=0.0,
+                                  bound_by={}, variants=0))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["ms"] += k_ms
     r["plain_ms"] += p_ms
+    r["device_ms"] = (None if d_ms is None or r["device_ms"] is None
+                      else r["device_ms"] + d_ms)
+    r["bound_ms"] += b_ms
+    r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms
     r["variants"] += 1
-    print("kernel: %-40s max_abs_err %d  kernel %.4f ms  plain %.4f ms"
-          % (label, err, k_ms, p_ms))
+    print("kernel: %-44s max_abs_err %d  kernel %.4f ms  device %s ms "
+          "(%d events, %d calls)  plain %.4f ms  bound %.4f ms (%s; %d B, "
+          "%d ops)"
+          % (label, err, k_ms, "%.4f" % d_ms if d_ms is not None else "none",
+             seen, calls, p_ms, b_ms, by, work[0], work[1]))
     if err:
         raise AssertionError("%s differs from its plain version" % label)
 
@@ -235,7 +481,8 @@ def phase_kernels(torch, dev, res):
             record(torch, res, LK.NAME, "lap %s %dx%d sb%d" % (
                 "fwd" if fwd else "inv", h, w, sb),
                 lambda: LK.lap_frame_cuda(x, sb, sb, fwd),
-                lambda: LK.lap_frame_plain(x, sb, sb, fwd))
+                lambda: LK.lap_frame_plain(x, sb, sb, fwd),
+                lap_work(h, w, sb, fwd), ("lap_copy_pass", "lap_band_pass"))
         if not torch.equal(LK.lap_frame_cuda(LK.lap_frame_cuda(
                 x, sb, sb, True), sb, sb, False), x):
             raise AssertionError("lap_frame: post(pre(x)) != x")
@@ -244,7 +491,8 @@ def phase_kernels(torch, dev, res):
                 record(torch, res, D.NAME, "dct %s n=%d %dx%d" % (
                     "fwd" if fwd else "inv", n, h, w),
                     lambda: D.dct_frame_cuda(x, n, fwd),
-                    lambda: D.dct_frame_plain(x, n, fwd))
+                    lambda: D.dct_frame_plain(x, n, fwd),
+                    dct_work(h, w, n, fwd), ("dct_frame_kernel",))
             if not torch.equal(D.dct_frame_cuda(D.dct_frame_cuda(
                     x, n, True), n, False), x):
                 raise AssertionError("dct_frame n=%d: idct(fdct(x)) != x"
@@ -252,37 +500,137 @@ def phase_kernels(torch, dev, res):
     torch.cuda.synchronize()
 
 
+LUMA, CHROMA = (1216, 2048), (608, 1024)  # the padded 1080p planes
+SMALL = ((256, 320), (128, 160))  # the padded planes of a 177x115 frame
+
+
+def _planes(torch, dev, rng, shape, hi):
+    p4 = rng.integers(0, 4096 if hi else 256, (4,) + shape)
+    return torch.from_numpy(p4.astype(np.uint16 if hi else np.uint8)).to(dev)
+
+
 def phase_obmc_kernels(torch, dev, res):
     """obmc_blend and obmc_leaf_cells against their plain versions on the
-    padded 1080p planes, leaves tiling the plane."""
+    padded 1080p planes (leaves tiling the plane, and a sweep-shaped
+    batch), timed; then the checked cases."""
     from daala_tpu_torch.ops.cuda import obmc_kernels as OK
     rng = np.random.default_rng(SEED)
-    for shape, pad, logs in (((1216, 2048), 64, (3, 4, 5, 6)),
-                             ((608, 1024), 32, (2, 3, 4, 5))):
+    cur = torch.from_numpy(rng.integers(0, 256, (1080, 1920))
+                           .astype(np.uint8)).to(dev)
+
+    def timed(p4, leaves, log_x, log_y, pad, label, cells):
+        shape = tuple(p4.shape[1:])
+        scal_np = OK.leaf_args(*leaves, pad, log_x, log_y, shape)
+        scal = torch.from_numpy(scal_np).to(dev)
+        hi = p4.dtype == torch.uint16
+        record(torch, res, OK.BLEND, "obmc_blend %s %d-bit, %d leaves"
+               % (label, 12 if hi else 8, len(scal_np)),
+               lambda: OK.obmc_blend_cuda(p4, scal, log_x, log_y),
+               lambda: OK.obmc_blend_plain(p4, scal, log_x, log_y),
+               obmc_work(scal_np, log_x, log_y, shape, 2 if hi else 1),
+               ("obmc_blend_kernel",))
+        if cells:
+            record(torch, res, OK.CELLS, "obmc_leaf_cells %s, visible "
+                   "1920x1080, %d leaves" % (label, len(scal_np)),
+                   lambda: OK.obmc_leaf_cells_cuda(p4, cur, scal, log_x),
+                   lambda: OK.obmc_leaf_cells_plain(p4, cur, scal, log_x),
+                   obmc_work(scal_np, log_x, log_y, shape, 1,
+                             tuple(cur.shape)),
+                   ("obmc_leaf_cells_kernel",))
+
+    for shape, pad, logs in ((LUMA, 64, (3, 4, 5, 6)),
+                             (CHROMA, 32, (2, 3, 4, 5))):
         for hi in (False, True):
-            p4 = rng.integers(0, 4096 if hi else 256, (4,) + shape)
-            p4 = torch.from_numpy(
-                p4.astype(np.uint16 if hi else np.uint8)).to(dev)
+            p4 = _planes(torch, dev, rng, shape, hi)
             for log_n in logs:
-                leaves = random_leaves(rng, log_n, log_n, shape, pad)
-                scal = torch.from_numpy(OK.leaf_args(
-                    *leaves, pad, log_n, log_n, shape)).to(dev)
-                record(torch, res, OK.BLEND, "obmc_blend n=%d %s %d-bit, %d"
-                       " leaves" % (1 << log_n, shape, 12 if hi else 8,
-                                    len(leaves[0])),
-                       lambda: OK.obmc_blend_cuda(p4, scal, log_n, log_n),
-                       lambda: OK.obmc_blend_plain(p4, scal, log_n, log_n))
-                if shape[0] == 1216 and not hi:
-                    cur = torch.from_numpy(rng.integers(
-                        0, 256, (1080, 1920)).astype(np.uint8)).to(dev)
-                    record(torch, res, OK.CELLS, "obmc_leaf_cells n=%d, "
-                           "visible 1920x1080, %d leaves"
-                           % (1 << log_n, len(leaves[0])),
-                           lambda: OK.obmc_leaf_cells_cuda(p4, cur, scal,
-                                                           log_n),
-                           lambda: OK.obmc_leaf_cells_plain(p4, cur, scal,
-                                                            log_n))
+                timed(p4, random_leaves(rng, log_n, log_n, shape, pad),
+                      log_n, log_n, pad, "n=%d %s" % (1 << log_n, shape),
+                      shape == LUMA and not hi)
+    p4 = _planes(torch, dev, rng, LUMA, False)
+    timed(p4, sweep_leaves(rng, LUMA, 64), 6, 6, 64,
+          "n=64 sweep-shaped batch", True)
     torch.cuda.synchronize()
+    print("obmc checked cases: %d, every one equal to the plain version"
+          % obmc_checked_cases(torch, dev, rng))
+
+
+def obmc_checked_cases(torch, dev, rng):
+    """The untimed OBMC cases of phase 2b (see the module docstring);
+    returns how many were checked.  Raises on the first difference."""
+    from daala_tpu_torch.ops.cuda import obmc_kernels as OK
+    count = 0
+
+    def check(p4, leaves, pad, log_x, log_y, cur=None, label=""):
+        nonlocal count
+        shape = tuple(p4.shape[1:])
+        scal = torch.from_numpy(OK.leaf_args(*leaves, pad, log_x, log_y,
+                                             shape)).to(dev)
+        if cur is None:
+            got = OK.bits(OK.obmc_blend_cuda(p4, scal, log_x, log_y))
+            want = OK.bits(OK.obmc_blend_plain(p4, scal, log_x, log_y))
+        else:
+            got = OK.obmc_leaf_cells_cuda(p4, cur, scal, log_x)
+            want = OK.obmc_leaf_cells_plain(p4, cur, scal, log_x)
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()
+            raise AssertionError(
+                "%s %dx%d (%d leaves, %s) differs from its plain version at "
+                "%d values, first at %s (leaf arguments %s)" % (
+                    "obmc_blend" if cur is None else "obmc_leaf_cells",
+                    1 << log_x, 1 << log_y, scal.shape[0], label, len(bad),
+                    bad[0].tolist(), scal[bad[0, 0]].tolist()))
+        count += 1
+
+    for hi in (False, True):
+        for shape, pad in ((LUMA, 64),) + tuple(zip(SMALL, (64, 32))):
+            p4 = _planes(torch, dev, rng, shape, hi)
+            for log_x in range(2, 7):
+                for log_y in range(2, 7):
+                    if shape == LUMA:
+                        check(p4, random_leaves(rng, log_x, log_y, shape,
+                                                pad, 600), pad, log_x, log_y,
+                              label="random")
+                    check(p4, edge_leaves(rng, log_x, log_y, shape, pad),
+                          pad, log_x, log_y, label="edges %s" % (shape,))
+                    if shape != LUMA and log_x == log_y:
+                        check(p4, random_leaves(rng, log_x, log_y, shape,
+                                                pad), pad, log_x, log_y,
+                              label="tiling %s" % (shape,))
+                    if shape == LUMA and log_x == log_y:
+                        for n in (1, 37):
+                            check(p4, random_leaves(rng, log_x, log_y, shape,
+                                                    pad, n), pad, log_x,
+                                  log_y, label="L=%d" % n)
+    # obmc_leaf_cells: L = 1, a ragged L, the edges, the small frame.
+    for shape, cur_shape in ((LUMA, (1080, 1900)), (SMALL[0], (115, 177))):
+        p4 = _planes(torch, dev, rng, shape, False)
+        cur = torch.from_numpy(rng.integers(0, 256, cur_shape)
+                               .astype(np.uint8)).to(dev)
+        for log_n in range(3, 7):
+            cases = [random_leaves(rng, log_n, log_n, shape, 64),
+                     edge_leaves(rng, log_n, log_n, shape, 64)]
+            if shape == LUMA:
+                cases += [random_leaves(rng, log_n, log_n, shape, 64, n)
+                          for n in (1, 37)]
+            for leaves in cases:
+                check(p4, leaves, 64, log_n, log_n, cur,
+                      label="cells %s, %d leaves" % (shape, len(leaves[0])))
+    # A plane whose rows or base are not 16-byte aligned is refused.
+    for shape, offset in (((4, 64, 100), 0), ((4, 64, 128), 1)):
+        flat = torch.zeros(int(np.prod(shape)) + offset, dtype=torch.uint8,
+                           device=dev)
+        bad = flat[offset:].view(shape)
+        scal = torch.from_numpy(OK.leaf_args(*random_leaves(
+            rng, 3, 3, shape[1:], 16, 4), 16, 3, 3, shape[1:])).to(dev)
+        try:
+            OK.obmc_blend_cuda(bad, scal, 3, 3)
+        except ValueError:
+            count += 1
+        else:
+            raise AssertionError("obmc_blend took a misaligned plane %s, "
+                                 "offset %d" % (shape, offset))
+    torch.cuda.synchronize()
+    return count
 
 
 class PaddedImage:
@@ -291,6 +639,7 @@ class PaddedImage:
     predictor writes through plane_view."""
 
     def __init__(self, info, fill):
+        from daala_tpu_torch.codec.mc import OD_BUFFER_PADDING
         self.pads = [OD_BUFFER_PADDING >> info.plane_dec[p][0]
                      for p in range(info.nplanes)]
         self.planes = [fill(((info.frame_height >> info.plane_dec[p][1])
@@ -315,8 +664,8 @@ def random_refs(info, rng, hi=False):
 def phase_obmc_frame(torch, dev):
     """predict_frame_plane_device on the card against the host predictor
     on random 1080p meshes; returns the launch counts of the run."""
-    from daala_tpu.codec import headers
-    from daala_tpu.codec import mc as MC
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.codec import mc as MC
     from daala_tpu_torch.models import obmc as OB
     from daala_tpu_torch.utils import devstats
     cases = []
@@ -367,34 +716,34 @@ def encode(enc, frames):
 
 
 def phase_encoder(torch, dev):
-    from daala_tpu.codec import headers
-    from daala_tpu.codec.encoder import Encoder as HostEncoder
+    from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.encoder import Encoder
     from daala_tpu_torch.utils import devstats
     from daala_tpu_torch.utils.profile import (ENCODER_KW as kw, H,
                                                NFRAMES, W, translation_clip)
     frames = translation_clip()
-    port = Encoder(headers.Info(pic_width=W, pic_height=H), device=dev,
+    card = Encoder(headers.Info(pic_width=W, pic_height=H), device=dev,
                    **kw)
     devstats.reset()
-    port_pk, port_s = encode(port, frames)
+    card_pk, card_s = encode(card, frames)
     torch.cuda.synchronize()
     snap = devstats.snapshot()
-    host_pk, host_s = encode(
-        HostEncoder(headers.Info(pic_width=W, pic_height=H), **kw), frames)
+    cpu_pk, cpu_s = encode(
+        Encoder(headers.Info(pic_width=W, pic_height=H), device="cpu", **kw),
+        frames)
     mpix = NFRAMES * W * H / 1e6
-    print("encode: %d packets, %d bytes; port %.3f Mpix/s (%.2f s), "
-          "host %.3f Mpix/s (%.2f s) [information only]"
-          % (len(port_pk), sum(map(len, port_pk)), mpix / port_s, port_s,
-             mpix / host_s, host_s))
+    print("encode: %d packets, %d bytes; %s %.3f Mpix/s (%.2f s), "
+          "cpu %.3f Mpix/s (%.2f s) [information only]"
+          % (len(card_pk), sum(map(len, card_pk)), dev, mpix / card_s,
+             card_s, mpix / cpu_s, cpu_s))
     print("devstats: " + json.dumps(snap, sort_keys=True))
-    if port_pk != host_pk:
-        bad = [i for i, (a, b) in enumerate(zip(port_pk, host_pk)) if a != b]
-        raise AssertionError("port packets differ from the host's (%d vs %d "
-                             "packets; first differing: %s)"
-                             % (len(port_pk), len(host_pk), bad[:3]))
-    print("encode: packets byte-identical to the host encoder's, encoder "
-          "check passed")
+    if card_pk != cpu_pk:
+        bad = [i for i, (a, b) in enumerate(zip(card_pk, cpu_pk)) if a != b]
+        raise AssertionError("card packets differ from the cpu run's (%d vs "
+                             "%d packets; first differing: %s)"
+                             % (len(card_pk), len(cpu_pk), bad[:3]))
+    print("encode: packets byte-identical between %s and cpu, encoder "
+          "check passed" % dev)
     for name in ("lap_frame", "dct_frame"):
         if snap["launches"].get(name, 0) <= 0:
             raise AssertionError("%s never launched on the main path" % name)
@@ -405,7 +754,7 @@ def phase_sweep(torch, dev):
     """The colour-sweep encode: (a) card against CPU on a clip whose mesh
     subdivides, (b) the 1080p clip on the card; returns (b)'s launch
     counts."""
-    from daala_tpu.codec import headers
+    from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.encoder import Encoder
     from daala_tpu_torch.utils import devstats
     from daala_tpu_torch.utils.profile import (ENCODER_KW, H, NFRAMES, W,
@@ -444,6 +793,37 @@ def phase_sweep(torch, dev):
     return snap["launches"]
 
 
+def kernel_line(kern, launches):
+    """The kernels line: each kernel's numbers summed over phase 2's and
+    2b's timed variants (each shape, size, direction or bit depth once):
+    per-call medians through the wrapper ("ms"), the kernels' device time
+    per call in the trace ("device_ms"), the plain version's, and the
+    bounds; "bound_by" names what bounds the larger part of bound_ms.
+    No single PyTorch call computes any of these functions, so
+    library_ms is null."""
+    pallas = "daala_tpu/ops/pallas/"
+    sources = {
+        "lap_frame": ("lap_frame.cu", pallas + "lap_kernels.py:78"),
+        "dct_frame": ("dct_frame.cu", pallas + "dct_kernels.py:83"),
+        "obmc_blend": ("obmc_leaf.cu", pallas + "obmc_kernels.py:191"),
+        "obmc_leaf_cells": ("obmc_leaf.cu", pallas + "obmc_kernels.py:208"),
+    }
+    rows = []
+    for name, (src, rep) in sources.items():
+        if name not in kern:
+            continue
+        k = kern[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "daala_tpu_torch/csrc/" + src, "replaces": rep,
+            "launches": launches.get(name), "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "device_ms": k["device_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": max(k["bound_by"], key=k["bound_by"].get),
+            "library_ms": None, "variants": k["variants"]})
+    return {"kernels": rows}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "daala_tpu_torch")):
         print("chip_smoke.py: daala_tpu_torch/ not found beside this script;"
@@ -464,25 +844,11 @@ def main():
     launches.update({k: v for k, v in phase_encoder(torch, dev).items()
                      if k in ("lap_frame", "dct_frame")})
     launches["obmc_leaf_cells"] = phase_sweep(torch, dev)["obmc_leaf_cells"]
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    pallas = "daala_tpu/ops/pallas/"
-    sources = {
-        "lap_frame": ("lap_frame.cu", pallas + "lap_kernels.py:78"),
-        "dct_frame": ("dct_frame.cu", pallas + "dct_kernels.py:83"),
-        "obmc_blend": ("obmc_leaf.cu", pallas + "obmc_kernels.py:191"),
-        "obmc_leaf_cells": ("obmc_leaf.cu", pallas + "obmc_kernels.py:208"),
-    }
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "daala_tpu_torch/csrc/" + src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": kern[name]["max_abs_err"],
-         # Sums over phase 2's and 2b's variants (each shape, size,
-         # direction or bit depth once) of the per-call medians.
-         "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
-         "variants": kern[name]["variants"]}
-        for name, (src, rep) in sources.items()]}))
+    leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
+                    or m.startswith(("jax.", "daala_tpu.")))
+    if leaked:
+        raise AssertionError("imported: %s" % leaked)
+    print(json.dumps(kernel_line(kern, launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

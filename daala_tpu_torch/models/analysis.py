@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from daala_tpu.ops.intrin import OD_COEFF_SHIFT
+from daala_tpu_torch.ops.intrin import OD_COEFF_SHIFT
 from daala_tpu_torch.ops.cuda.lap_kernels import (
     filter_cols_at as _filter_cols_at, filter_rows_at as _filter_rows_at,
     lap_frame)

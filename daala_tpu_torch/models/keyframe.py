@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from daala_tpu.ops import _lifting as L
+from daala_tpu_torch.ops import _lifting as L
 from daala_tpu_torch.device import resolve
 from daala_tpu_torch.ops.cuda.dct_kernels import dct_frame
 from daala_tpu_torch.ops.cuda.lap_kernels import lap_frame

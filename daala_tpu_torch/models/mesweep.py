@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from daala_tpu.codec import mc as MC
+from daala_tpu_torch.codec import mc as MC
 from daala_tpu_torch.device import resolve
 from daala_tpu_torch.models import obmc as OB
 from daala_tpu_torch.ops.cuda import obmc_kernels as OK

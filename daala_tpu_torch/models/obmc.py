@@ -20,9 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from daala_tpu.codec.mc import (OD_LOG_MVB_DELTA0, OD_MVB_DELTA0,
-                                OD_BUFFER_PADDING, OD_VERT_DX, OD_VERT_DY,
-                                VERT_SETUP_DX, VERT_SETUP_DY, div_pow2_re)
+from daala_tpu_torch.codec.mc import (OD_LOG_MVB_DELTA0, OD_MVB_DELTA0,
+                                      OD_BUFFER_PADDING, OD_VERT_DX,
+                                      OD_VERT_DY, VERT_SETUP_DX,
+                                      VERT_SETUP_DY, div_pow2_re)
 from daala_tpu_torch.device import resolve
 from daala_tpu_torch.ops.cuda import obmc_kernels as OK
 from daala_tpu_torch.utils import devstats

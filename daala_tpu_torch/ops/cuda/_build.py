@@ -14,6 +14,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,8 +27,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "daala_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+PTXAS: dict = {}  # source name -> ptxas's report of the build done now
 _LIBS: dict = {}
 _LOCKS: dict = {}  # source name -> its lock, so sources build in parallel
 _LOCK = threading.Lock()  # guards _LOCKS
@@ -93,10 +95,42 @@ def _compile(name, so):
             raise RuntimeError("nvcc failed for %s.cu:\n%s%s"
                                % (name, r.stdout, r.stderr))
         os.replace(tmp, so)
+        PTXAS[name] = r.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     devstats.built(name, time.perf_counter() - t0)
+
+
+def ptxas_report(text):
+    """[(kernel, registers, stack bytes, spill store bytes, spill load
+    bytes)] for every entry function of a ptxas -v report, names
+    demangled by c++filt where it is installed."""
+    rows, name = [], None
+    stack = spill_st = spill_ld = 0
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            stack, spill_st, spill_ld = map(int, m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append([name, int(m.group(1)), stack, spill_st, spill_ld])
+            name, stack, spill_st, spill_ld = None, 0, 0, 0
+    filt = shutil.which("c++filt")
+    if rows and filt:
+        r = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                           capture_output=True, text=True)
+        names = r.stdout.splitlines()
+        if r.returncode == 0 and len(names) == len(rows):
+            for row, nm in zip(rows, names):
+                row[0] = nm
+    return [tuple(r) for r in rows]
 
 
 def check(err, name):

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from daala_tpu.ops import _lifting as L
+from daala_tpu_torch.ops import _lifting as L
 from daala_tpu_torch.ops.cuda import _build
 from daala_tpu_torch.utils import devstats
 

@@ -20,9 +20,12 @@ reference planes as the port keeps them resident: (4, Hp, Wp) uint8, or
 uint16 for 12-bit references.  `leaf_args` raises when a window leaves
 its plane: nothing clamps, on either side.
 
-On the card the kernels are bound by the gather of 4 windows per leaf
-and by the host cost of many small calls, not by arithmetic; see the
-note in csrc/obmc_leaf.cu.
+On the card the kernels are bound by integer operations (about 55 per
+pixel at n = 64, with dp4a and dp2a); their launch plans are in
+csrc/obmc_plan.cuh and the design in the note of csrc/obmc_leaf.cu.
+The CUDA wrappers take planes whose base and rows are 16-byte aligned
+(the kernels copy the windows with cp.async) and that hold fewer than
+2^32 bytes, which every frame of the codec gives.
 
 `obmc_blend` and `obmc_leaf_cells` launch the kernel for tensors on a
 CUDA device and run the plain version only for tensors on the CPU;
@@ -37,7 +40,7 @@ import functools
 import numpy as np
 import torch
 
-from daala_tpu.codec.mc import SUBPEL_FILTER_SET, _setup_s_split
+from daala_tpu_torch.codec.mc import SUBPEL_FILTER_SET, _setup_s_split
 from daala_tpu_torch.ops.cuda import _build
 from daala_tpu_torch.utils import devstats
 
@@ -47,7 +50,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     BLEND: [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
     CELLS: [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P],
+    "obmc_plan_info": [_I, _I, _I, _I, _P],
 }
+_PLAN_KEYS = ("threads", "leaves_per_block", "copy_bytes", "smem_bytes",
+              "blocks_per_sm", "rows_per_thread")
 # Leaves per step of the plain version: bounds its (L, 4, ny+5, nx+5)
 # intermediates to a few tens of MB.
 _PLAIN_CHUNK_PIXELS = 1 << 20
@@ -207,6 +213,23 @@ def _check(planes4, scal, hi_ok=True):
         raise ValueError("OBMC kernels take contiguous tensors")
 
 
+def _check_layout(planes4):
+    """The kernels copy the windows with cp.async from rows that start
+    on 16-byte boundaries, and address the planes with 32-bit offsets:
+    raise unless the planes' base and row pitch (Wp * itemsize) are
+    multiples of 16 bytes and the planes hold fewer than 2^32 bytes.
+    Every frame the codec makes qualifies (frame widths are multiples
+    of 64, pads 64 or 32)."""
+    pitch = planes4.shape[2] * planes4.element_size()
+    if pitch % 16 or planes4.data_ptr() % 16:
+        raise ValueError("OBMC kernels take planes whose base and rows are "
+                         "16-byte aligned, got a %d-byte row pitch at "
+                         "address %#x" % (pitch, planes4.data_ptr()))
+    if planes4.numel() * planes4.element_size() >= 1 << 32:
+        raise ValueError("OBMC kernels take planes of fewer than 2^32 "
+                         "bytes, got %s" % (tuple(planes4.shape),))
+
+
 def _check_sizes(log_x, log_y, lo):
     if not (lo <= log_x <= 6 and lo <= log_y <= 6):
         raise ValueError("OBMC leaf sizes must be %d..64, got %dx%d"
@@ -217,6 +240,17 @@ def build():
     """Build (first use) and load csrc/obmc_leaf.cu; returns the
     library."""
     return _build.load(SOURCE, _ENTRIES)
+
+
+def plan_info(log_x, log_y, hi=False, cells=False):
+    """The launch plan of one kernel instantiation on the current CUDA
+    device (csrc/obmc_plan.cuh, with the occupancy calculator's blocks
+    per SM), as a dict."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    _build.check(build().obmc_plan_info(log_x, log_y, int(hi), int(cells),
+                                        ctypes.addressof(out)),
+                 "obmc_plan_info")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def _stream(t):
@@ -230,6 +264,7 @@ def obmc_blend_cuda(planes4, scal, log_x, log_y):
     _check_sizes(log_x, log_y, 2)
     if planes4.device.type != "cuda":
         raise ValueError("obmc_blend_cuda takes CUDA tensors")
+    _check_layout(planes4)
     L = scal.shape[0]
     out = torch.empty((L, 1 << log_y, 1 << log_x), dtype=planes4.dtype,
                       device=planes4.device)
@@ -253,6 +288,7 @@ def obmc_leaf_cells_cuda(planes4, cur, scal, log_n):
     _check_sizes(log_n, log_n, 3)
     if planes4.device.type != "cuda":
         raise ValueError("obmc_leaf_cells_cuda takes CUDA tensors")
+    _check_layout(planes4)
     if (cur.dim() != 2 or cur.dtype != torch.uint8
             or cur.device != planes4.device or not cur.is_contiguous()):
         raise ValueError("obmc_leaf_cells takes the visible current luma "

@@ -102,7 +102,7 @@ def device_summary(events, wall_s):
 
 
 def _encoder(device, sweep):
-    from daala_tpu.codec import headers
+    from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.encoder import Encoder
     enc = Encoder(headers.Info(pic_width=W, pic_height=H), device=device,
                   mv_refine_mode="sweep" if sweep else "greedy",

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (PaddedImage, random_grid, random_leaves,
-                        random_refs, textured_clip)
+from chip_smoke import (SMALL, PaddedImage, edge_leaves, random_grid,
+                        random_leaves, random_refs, sweep_leaves,
+                        textured_clip)
 from daala_tpu import native
 from daala_tpu.codec import headers
 from daala_tpu.codec import mc as MC
@@ -126,16 +127,101 @@ def _obmc_case(card, log_x, log_y, hi, seed, count=2000):
     return p4, torch.from_numpy(scal).to(card), rng
 
 
-@pytest.mark.parametrize("hi", [False, True])
-@pytest.mark.parametrize("log_x,log_y", [(2, 2), (3, 3), (4, 4), (5, 5),
-                                         (6, 6), (4, 3)])
-def test_obmc_blend_kernel_matches_plain(card, log_x, log_y, hi):
-    p4, scal, _ = _obmc_case(card, log_x, log_y, hi, log_x + 8 * hi)
+def _blend_equal(p4, scal, log_x, log_y):
     got = OK.obmc_blend_cuda(p4, scal, log_x, log_y)
     assert got.dtype == p4.dtype
     want = OK.obmc_blend_plain(p4, scal, log_x, log_y)
-    assert torch.equal(OK.bits(got), OK.bits(want))
     torch.cuda.synchronize()
+    return torch.equal(OK.bits(got), OK.bits(want))
+
+
+PAIRS = [(x, y) for x in range(2, 7) for y in range(2, 7)]
+
+
+@pytest.mark.parametrize("hi", [False, True])
+@pytest.mark.parametrize("log_x,log_y", PAIRS)
+def test_obmc_blend_kernel_matches_plain(card, log_x, log_y, hi):
+    """Every size the entry point takes, square or not (16x8 once left
+    the 8-bit range), on random leaves and on leaves whose windows touch
+    the plane's four edges."""
+    p4, scal, rng = _obmc_case(card, log_x, log_y, hi,
+                               log_x + 8 * log_y + 64 * hi, count=700)
+    assert _blend_equal(p4, scal, log_x, log_y)
+    edges = OK.leaf_args(*edge_leaves(rng, log_x, log_y, LUMA, 64), 64,
+                         log_x, log_y, LUMA)
+    assert _blend_equal(p4, torch.from_numpy(edges).to(card), log_x, log_y)
+
+
+@pytest.mark.parametrize("count", [1, 37, 333])
+@pytest.mark.parametrize("log_n", [2, 3, 4, 5, 6])
+def test_obmc_kernels_take_any_leaf_count(card, log_n, count):
+    """L = 1 and counts that leave the last block of leaves ragged."""
+    p4, scal, rng = _obmc_case(card, log_n, log_n, False, 3 * log_n + count,
+                               count=count)
+    assert scal.shape[0] == count
+    assert _blend_equal(p4, scal, log_n, log_n)
+    if log_n >= 3:
+        cur = torch.from_numpy(rng.integers(0, 256, (1080, 1920))
+                               .astype(np.uint8)).to(card)
+        assert torch.equal(OK.obmc_leaf_cells_cuda(p4, cur, scal, log_n),
+                           OK.obmc_leaf_cells_plain(p4, cur, scal, log_n))
+
+
+@pytest.mark.parametrize("hi", [False, True])
+@pytest.mark.parametrize("plane", [0, 1])
+def test_obmc_kernels_on_a_small_frame(card, plane, hi):
+    """A 177x115 frame: padded planes 320 and 160 samples wide, rows
+    16-byte but not 64-byte aligned; every square size, tiling leaves
+    and edge leaves; the cells against the visible 177x115 luma."""
+    shape, pad = SMALL[plane], (64, 32)[plane]
+    rng = np.random.default_rng(11 + 2 * plane + hi)
+    p4 = torch.from_numpy(rng.integers(0, 4096 if hi else 256, (4,) + shape)
+                          .astype(np.uint16 if hi else np.uint8)).to(card)
+    cur = torch.from_numpy(rng.integers(0, 256, (115, 177))
+                           .astype(np.uint8)).to(card)
+    for log_n in range(2, 7 - plane):
+        for leaves in (random_leaves(rng, log_n, log_n, shape, pad),
+                       edge_leaves(rng, log_n, log_n, shape, pad)):
+            scal = torch.from_numpy(OK.leaf_args(*leaves, pad, log_n, log_n,
+                                                 shape)).to(card)
+            assert _blend_equal(p4, scal, log_n, log_n), log_n
+            if plane == 0 and not hi and log_n >= 3:
+                assert torch.equal(
+                    OK.obmc_leaf_cells_cuda(p4, cur, scal, log_n),
+                    OK.obmc_leaf_cells_plain(p4, cur, scal, log_n)), log_n
+
+
+def test_obmc_kernels_on_a_sweep_shaped_batch(card):
+    """4,080 rows: the 510 n = 64 leaves of the 1080p plane, each 8 times
+    with one corner's MV moved by up to +-16 1/8-pel."""
+    rng = np.random.default_rng(5)
+    p4 = torch.from_numpy(rng.integers(0, 256, (4,) + LUMA)
+                          .astype(np.uint8)).to(card)
+    cur = torch.from_numpy(rng.integers(0, 256, (1080, 1920))
+                           .astype(np.uint8)).to(card)
+    scal = OK.leaf_args(*sweep_leaves(rng, LUMA, 64), 64, 6, 6, LUMA)
+    assert scal.shape[0] == 4080
+    scal = torch.from_numpy(scal).to(card)
+    assert torch.equal(OK.obmc_leaf_cells_cuda(p4, cur, scal, 6),
+                       OK.obmc_leaf_cells_plain(p4, cur, scal, 6))
+    assert _blend_equal(p4, scal, 6, 6)
+
+
+@pytest.mark.parametrize("width,offset", [(100, 0), (120, 0), (128, 1),
+                                          (128, 8)])
+def test_obmc_wrappers_refuse_misaligned_planes(card, width, offset):
+    shape = (4, 64, width)
+    flat = torch.zeros(4 * 64 * width + offset, dtype=torch.uint8,
+                       device=card)
+    p4 = flat[offset:].view(shape)
+    rng = np.random.default_rng(width)
+    scal = torch.from_numpy(OK.leaf_args(*random_leaves(
+        rng, 3, 3, shape[1:], 16, 4), 16, 3, 3, shape[1:])).to(card)
+    cur = torch.zeros((32, 96), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        OK.obmc_blend_cuda(p4, scal, 3, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        OK.obmc_leaf_cells_cuda(p4, cur, scal, 3)
 
 
 @pytest.mark.parametrize("log_n", [3, 4, 5, 6])

@@ -8,7 +8,8 @@ refine_sweep must equal JAX's (XLA path on the CPU) exactly; the port's
 Encoder(device="cpu", mv_refine_mode="sweep") must give packets
 byte-identical to the host encoder with mv_refine_mode = "sweep".  The
 seam is held to its traps: a caller's mv_override_cb still runs after
-the sweep, and the host attribute raises before any jax import.
+the sweep, and mv_refine_mode set after construction runs the port's
+sweep (an unknown mode raises), with no jax and no daala_tpu imported.
 """
 
 import copy
@@ -184,11 +185,12 @@ def _run(code):
 _PRELUDE = """
 import sys
 from chip_smoke import textured_clip
-from daala_tpu.codec import headers
+from daala_tpu_torch.codec import headers
 from daala_tpu_torch.codec.encoder import Encoder
+from daala_tpu_torch.utils import devstats
 def jax_loaded():
-    return sorted(m for m in sys.modules if m == 'jax' or m.startswith(
-        ('jax.', 'daala_tpu.models', 'daala_tpu.ops.pallas')))
+    return sorted(m for m in sys.modules if m in ('jax', 'daala_tpu')
+                  or m.startswith(('jax.', 'daala_tpu.')))
 info = headers.Info(pic_width=96, pic_height=64)
 frames = textured_clip(96, 64, 2)
 """
@@ -207,19 +209,24 @@ print('loaded', jax_loaded())
 
 
 def test_host_attribute_raises_without_jax():
-    """enc.mv_refine_mode = 'sweep' on the port's encoder raises before
-    the host's sweep could import jax."""
+    """mv_refine_mode is the port encoder's own attribute: set after
+    construction to 'sweep' it runs the port's sweep, with no jax and no
+    daala_tpu imported; an unknown mode raises when it is set."""
     out = _run(_PRELUDE + """
 enc = Encoder(info, device='cpu', quant=18, complexity=7)
 enc.mv_refine_mode = 'sweep'
-enc.encode_frame(frames[0])
+devstats.reset()
+for fr in frames:
+    enc.encode_frame(fr)
+print('sweep_s', devstats.snapshot()['spans_s'].get('refine_sweep', 0) > 0)
 try:
-    enc.encode_frame(frames[1])
+    enc.mv_refine_mode = 'jacobi'
     print('no error')
 except ValueError as e:
     print('raised', e)
 print('loaded', jax_loaded())
 """)
+    assert "sweep_s True" in out
     assert "raised" in out and "loaded []" in out
 
 
