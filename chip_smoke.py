@@ -5,6 +5,12 @@ Usage, from the root of a checkout, on a machine with a CUDA card, the
 CUDA toolkit (nvcc) and g++:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab PARENT   # phases 1-2 only, parent vs this
+
+With --ab, PARENT is another checkout (at least its daala_tpu_torch/
+csrc/); phase 2 runs with its lap_frame.cu and dct_frame.cu and with
+this tree's, in turns (parent, change, change, parent) in one process
+on one card, and prints each case's device time per turn.
 
 Phases, each printing its lines; any failure raises and exits nonzero:
 
@@ -23,7 +29,9 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    Every timed call finds the 50 MB L2 cold (`flush_l2` before it), as
    the main path does: CUDA-event times of calls through the wrapper
    ("kernel"), the kernels' own device time from a torch.profiler trace
-   ("device") and the bound (see `bound`).
+   ("device") and the bound (see `bound`).  Beside them, as information,
+   a clone() of each plane: what a launch that reads and writes the
+   plane's bytes takes on this card.
 2b. The OBMC kernels against their plain versions, on the padded 1080p
    luma plane (4, 1216, 2048) and a chroma plane (4, 608, 1024), with
    random leaves tiling the plane (random slots, MVs in +-256 1/8-pel,
@@ -249,12 +257,13 @@ def batch_ms(torch, fn):
     return statistics.median(out)
 
 
-def trace_ms(torch, fn, names, calls=10, tries=3):
+def trace_ms(torch, fn, names, calls=10, tries=3, cats=("kernel",)):
     """Device time per call of fn from a torch.profiler trace of `calls`
-    calls, each after flush_l2: for each kernel whose name holds one of
-    `names`, its mean duration times its launches per call.  Returns
-    (ms, events seen, calls); a trace that shows none of the kernels is
-    taken again, up to `tries` times, and then ms is None."""
+    calls, each after flush_l2: for each device event of a category in
+    `cats` whose name holds one of `names`, its mean duration times its
+    launches per call.  Returns (ms, events seen, calls); a trace that
+    shows none of them is taken again, up to `tries` times, and then ms
+    is None."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -274,7 +283,7 @@ def trace_ms(torch, fn, names, calls=10, tries=3):
         durs = {}
         for e in events:
             name = e.get("name", "")
-            if e.get("cat") == "kernel" and any(n in name for n in names):
+            if e.get("cat") in cats and any(n in name for n in names):
                 durs.setdefault(name, []).append(e["dur"])
         if durs:
             ms = sum(statistics.mean(d) / 1e3 * max(1, round(len(d) / calls))
@@ -439,6 +448,10 @@ def phase_environment(torch):
           "bytes, blocks per SM, rows per thread)")
 
 
+CASES = []  # (label, kernel ms, device ms, plain ms, bound ms) of record
+TIME_PLAIN = True  # False: record checks plain but does not time it
+
+
 def record(torch, res, name, label, kern, plain, work, trace_names):
     """Time kern (CUDA events through the wrapper, and its kernels'
     device time in a profiler trace) and plain (CUDA events), each call
@@ -446,7 +459,8 @@ def record(torch, res, name, label, kern, plain, work, trace_names):
     the bound of `work` (bytes, ops)."""
     from daala_tpu_torch.ops.cuda.obmc_kernels import bits
     err = int((bits(kern()).long() - bits(plain()).long()).abs().max().item())
-    k_ms, p_ms = batch_ms(torch, kern), batch_ms(torch, plain)
+    k_ms = batch_ms(torch, kern)
+    p_ms = batch_ms(torch, plain) if TIME_PLAIN else float("nan")
     d_ms, seen, calls = trace_ms(torch, kern, trace_names)
     b_ms, by = bound(*work)
     r = res.setdefault(name, dict(max_abs_err=0, ms=0.0, plain_ms=0.0,
@@ -460,6 +474,7 @@ def record(torch, res, name, label, kern, plain, work, trace_names):
     r["bound_ms"] += b_ms
     r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms
     r["variants"] += 1
+    CASES.append((label, k_ms, d_ms, p_ms, b_ms))
     print("kernel: %-44s max_abs_err %d  kernel %.4f ms  device %s ms "
           "(%d events, %d calls)  plain %.4f ms  bound %.4f ms (%s; %d B, "
           "%d ops)"
@@ -469,20 +484,40 @@ def record(torch, res, name, label, kern, plain, work, trace_names):
         raise AssertionError("%s differs from its plain version" % label)
 
 
-def phase_kernels(torch, dev, res):
-    """lap_frame and dct_frame against their plain versions."""
+def clone_floor(torch, x):
+    """A same-size clone() of the plane x, each call with a cold L2: its
+    CUDA-event time and its device time in a trace.  Information only: it
+    computes another function, but tells what a launch that reads and
+    writes these bytes costs on this card."""
+    c_ms = batch_ms(torch, x.clone)
+    d_ms, seen, calls = trace_ms(torch, x.clone, ("Memcpy DtoD", "copy"),
+                                 cats=("kernel", "gpu_memcpy"))
+    print("clone: %dx%d int32  %.4f ms  device %s ms (%d events, %d calls) "
+          "[information only]" % (tuple(x.shape) + (
+              c_ms, "%.4f" % d_ms if d_ms is not None else "none", seen,
+              calls)))
+    CASES.append(("clone %dx%d" % tuple(x.shape), c_ms, d_ms, float("nan"),
+                  float("nan")))
+
+
+def phase_kernels(torch, dev, res, names=None):
+    """lap_frame and dct_frame against their plain versions, and the
+    clone() floor of each plane.  names: {source: the trace names of its
+    kernels}, by default each wrapper module's KERNELS."""
     from daala_tpu_torch.ops.cuda import dct_kernels as D, lap_kernels as LK
+    names = names or {LK.NAME: LK.KERNELS, D.NAME: D.KERNELS}
     g = torch.Generator().manual_seed(SEED)
     for (h, w, sb, sizes) in ((1088, 1920, 64, (4, 8, 16, 32, 64)),
                               (544, 960, 32, (4, 8, 16, 32))):
         x = torch.randint(-(1 << 14), 1 << 14, (h, w), generator=g,
                           dtype=torch.int32).to(dev)
+        clone_floor(torch, x)
         for fwd in (True, False):
             record(torch, res, LK.NAME, "lap %s %dx%d sb%d" % (
                 "fwd" if fwd else "inv", h, w, sb),
                 lambda: LK.lap_frame_cuda(x, sb, sb, fwd),
                 lambda: LK.lap_frame_plain(x, sb, sb, fwd),
-                lap_work(h, w, sb, fwd), ("lap_copy_pass", "lap_band_pass"))
+                lap_work(h, w, sb, fwd), names[LK.NAME])
         if not torch.equal(LK.lap_frame_cuda(LK.lap_frame_cuda(
                 x, sb, sb, True), sb, sb, False), x):
             raise AssertionError("lap_frame: post(pre(x)) != x")
@@ -492,12 +527,96 @@ def phase_kernels(torch, dev, res):
                     "fwd" if fwd else "inv", n, h, w),
                     lambda: D.dct_frame_cuda(x, n, fwd),
                     lambda: D.dct_frame_plain(x, n, fwd),
-                    dct_work(h, w, n, fwd), ("dct_frame_kernel",))
+                    dct_work(h, w, n, fwd), names[D.NAME])
             if not torch.equal(D.dct_frame_cuda(D.dct_frame_cuda(
                     x, n, True), n, False), x):
                 raise AssertionError("dct_frame n=%d: idct(fdct(x)) != x"
                                      % n)
     torch.cuda.synchronize()
+
+
+def global_names(path):
+    """The __global__ functions of a CUDA source."""
+    import re
+    with open(path) as f:
+        return tuple(sorted(set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+            f.read()))))
+
+
+def build_other(root, tag):
+    """Build lap_frame.cu and dct_frame.cu of another checkout at `root`
+    (the same nvcc flags, in parallel) and load them; returns {source:
+    (library, its kernels' names)}."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from daala_tpu_torch.ops.cuda import _build, dct_kernels, lap_kernels
+    csrc = os.path.join(os.path.abspath(root), "daala_tpu_torch", "csrc")
+    os.makedirs(BUILD, exist_ok=True)
+
+    def one(mod):
+        src = os.path.join(csrc, mod.NAME + ".cu")
+        so = os.path.join(BUILD, "%s-%s.so" % (tag, mod.NAME))
+        r = subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS
+                           + ["-I", csrc, "-o", so, src],
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode:
+            raise RuntimeError("nvcc failed for %s:\n%s" % (src, r.stderr))
+        for fn, regs, stack, st, ld in _build.ptxas_report(r.stderr):
+            print("ptxas (%s): %s: %d registers, %d bytes stack, spills "
+                  "%d/%d bytes (store/load): %s"
+                  % (tag, mod.NAME, regs, stack, st, ld, fn))
+        lib = ctypes.CDLL(so)
+        fn = getattr(lib, mod.NAME)
+        fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
+        return mod.NAME, (lib, global_names(src))
+
+    with ThreadPoolExecutor(2) as ex:
+        return dict(ex.map(one, (lap_kernels, dct_kernels)))
+
+
+def phase_ab(torch, dev, parent):
+    """Phase 2 with the lap_frame.cu and dct_frame.cu of the checkout at
+    `parent` and of this tree, in turns (parent, change, change, parent)
+    in one process on one card, every call with a cold L2; prints each
+    case's device time per turn and, as a line of JSON, all of them."""
+    global TIME_PLAIN
+    from daala_tpu_torch.ops.cuda import _build
+    other = build_other(parent, "parent")
+    mine = {name: (_build.load(name, {}), tuple(
+        global_names(os.path.join(_build.CSRC, name + ".cu"))))
+        for name in other}
+    TIME_PLAIN = False
+    turns = []
+    for tag, libs in (("parent", other), ("change", mine),
+                      ("change", mine), ("parent", other)):
+        for name, (lib, _) in libs.items():
+            _build._LIBS[name] = lib
+        del CASES[:]
+        print("ab: turn %d, %s" % (len(turns) + 1, tag))
+        phase_kernels(torch, dev, {},
+                      {name: kn for name, (_, kn) in libs.items()})
+        turns.append((tag, list(CASES)))
+    for name, (lib, _) in mine.items():
+        _build._LIBS[name] = lib
+    rows = []
+    for i, case in enumerate(turns[0][1]):
+        dev_us = [t[1][i][2] * 1e3 if t[1][i][2] is not None else None
+                  for t in turns]
+        ms = [t[1][i][1] for t in turns]
+        bound_us = None if case[4] != case[4] else case[4] * 1e3  # NaN
+        rows.append({"case": case[0], "bound_us": bound_us,
+                     "device_us": dev_us, "ms": ms})
+        print("ab: %-28s bound %s us  device us parent %s / change %s  "
+              "wrapper ms %s" % (
+                  case[0], "%7.3f" % bound_us if bound_us else "   none",
+                  ", ".join("%.3f" % v if v is not None else "none"
+                            for v in (dev_us[0], dev_us[3])),
+                  ", ".join("%.3f" % v if v is not None else "none"
+                            for v in (dev_us[1], dev_us[2])),
+                  " ".join("%.4f" % v for v in ms)))
+    print("ab: " + json.dumps({"turns": [t[0] for t in turns],
+                               "cases": rows}))
 
 
 LUMA, CHROMA = (1216, 2048), (608, 1024)  # the padded 1080p planes
@@ -528,7 +647,7 @@ def phase_obmc_kernels(torch, dev, res):
                lambda: OK.obmc_blend_cuda(p4, scal, log_x, log_y),
                lambda: OK.obmc_blend_plain(p4, scal, log_x, log_y),
                obmc_work(scal_np, log_x, log_y, shape, 2 if hi else 1),
-               ("obmc_blend_kernel",))
+               (OK.KERNELS[0],))
         if cells:
             record(torch, res, OK.CELLS, "obmc_leaf_cells %s, visible "
                    "1920x1080, %d leaves" % (label, len(scal_np)),
@@ -536,7 +655,7 @@ def phase_obmc_kernels(torch, dev, res):
                    lambda: OK.obmc_leaf_cells_plain(p4, cur, scal, log_x),
                    obmc_work(scal_np, log_x, log_y, shape, 1,
                              tuple(cur.shape)),
-                   ("obmc_leaf_cells_kernel",))
+                   (OK.KERNELS[1],))
 
     for shape, pad, logs in ((LUMA, 64, (3, 4, 5, 6)),
                              (CHROMA, 32, (2, 3, 4, 5))):
@@ -824,7 +943,14 @@ def kernel_line(kern, launches):
     return {"kernels": rows}
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", metavar="PARENT",
+                    help="only phases 1 and 2, with the lap_frame.cu and "
+                    "dct_frame.cu of the checkout PARENT and of this tree "
+                    "in turns (parent, change, change, parent)")
+    args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "daala_tpu_torch")):
         print("chip_smoke.py: daala_tpu_torch/ not found beside this script;"
               " run it from the repository root", file=sys.stderr)
@@ -837,6 +963,9 @@ def main():
     from daala_tpu_torch.device import resolve
     dev = resolve("cuda:0")
     phase_environment(torch)
+    if args.ab:
+        phase_ab(torch, dev, args.ab)
+        return 0
     kern = {}
     phase_kernels(torch, dev, kern)
     phase_obmc_kernels(torch, dev, kern)

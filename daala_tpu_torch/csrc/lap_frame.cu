@@ -6,41 +6,54 @@
 //
 // Replaces lap_frame_pallas (daala_tpu/ops/pallas/lap_kernels.py:78).  The
 // Pallas kernel holds a full-height column stripe in VMEM and leaves the
-// transpose for the vertical edges to XLA.  Here there is no transpose and
-// two launches per direction, because the second pass reads the corners
-// the first one wrote:
+// transpose for the vertical edges to XLA.
 //
-//   lap_copy_pass:  one thread per pixel.  It copies `in` to `out`, except
-//                   that the thread at the head of a band (first row or
-//                   column of it) lifts the band's 4 values instead.
-//   lap_band_pass:  one thread per (edge, lane) lifts 4 values of `out` in
-//                   place.
+// What bounds it: bytes.  Only a few percent of the pixels are lifted, so
+// the kernel should run at the speed of one read and one write of the
+// plane (16.6 MB at 1080p luma, 5 us at 3.35 TB/s).  The first design took
+// two launches (a copy pass with a thread per pixel and two runtime
+// divisions each, then a pass over the second axis's bands) and reached
+// 17-38% of that bound with a cold L2.  This one is one launch:
 //
-// Bands never overlap (sb >= 4, which the wrapper checks; the codec uses
-// 32 and 64), so every pixel is written once per pass.  What bounds it:
-// bytes and launches.  Only a few percent of pixels are lifted; a 1080p
-// luma plane moves 16.6 MB (5 us at the H100's 3.35 TB/s), so the two
-// launches' fixed cost is of the same order.
+// 1. Tiles with a halo.  A block owns an aligned tile (32 x 128 pixels on
+//    wide planes, 32 x 64 otherwise; csrc/frame_plan.cuh lap_plan) and
+//    copies it into shared memory with 2 rows above and below and 4
+//    columns left and right.  Tile edges lie on multiples of 4 and band
+//    starts on 2 modulo 4, so every band that touches the tile, and every
+//    4 x 4 corner where a row band crosses a column band, lies in the
+//    tile and its halo.  A band that crosses a tile edge is lifted by both
+//    tiles; each stores its own pixels.
+// 2. In shared memory: the first axis's bands, over the tile's columns
+//    (forward) or rows (inverse) and the 2 of the halo on each side that
+//    the corners need; a barrier; the second axis's bands over the
+//    tile's own rows or columns; a barrier; the store of the tile.
+// 3. Every load of the tile in flight at once: cp.async of 16 bytes where
+//    the plane's base and rows are 16-byte aligned (the halo of 4 keeps
+//    every copy aligned), of 4 bytes otherwise (w = 150, or a view with an
+//    odd storage offset); 16-byte stores (4-byte ones) from shared memory.
+// 4. Band positions come from two divisions per tile and axis
+//    (lap_edges), none per pixel.
+//
+// One tile per block, every block resident at once at 1080p.  A ring
+// over tiles (a persistent grid, the next tile's copies in flight while
+// one is filtered and stored) was tried and was slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "frame_plan.cuh"
 #include "lifting_gen.cuh"
 
 namespace {
 
-// True when a band starts at pixel index i along the filtered axis:
-// i + 2 is a multiple of sb and the edge k = (i + 2) / sb is interior.
-__device__ __forceinline__ bool band_head(int i, int sb, int nsb) {
-  const int k = (i + 2) / sb;
-  return (i + 2) % sb == 0 && k >= 1 && k < nsb;
-}
-
-// True when pixel index i lies in a band but not at its head.
-__device__ __forceinline__ bool band_tail(int i, int sb, int nsb) {
-  const int k = (i + 2) / sb;
-  const int off = (i + 2) % sb;
-  return off >= 1 && off < 4 && k >= 1 && k < nsb;
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void *src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(src), "n"(BYTES));
 }
 
 template <bool FWD>
@@ -52,84 +65,119 @@ __device__ __forceinline__ void lift4(int32_t *v) {
   }
 }
 
-// ROWS: the bands are 4 rows (vertical lifting across horizontal edges).
-// Otherwise 4 columns.  Grid: x over columns, y over rows.
+// Lift the bands of edges k_lo..k_hi across `lanes` lanes [l0, l1) of the
+// tile in shared memory.  ROWS: the bands are 4 rows (vertical lifting),
+// the lanes columns; otherwise 4 columns, the lanes rows.  r0, c0: the
+// plane's row and column at shared (0, 0).
 template <bool ROWS, bool FWD>
-__global__ void lap_copy_pass(const int32_t *__restrict__ in,
-                              int32_t *__restrict__ out, int h, int w,
-                              int sb, int nsb) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= w) return;
-  const int i = ROWS ? y : x;
-  if (band_tail(i, sb, nsb)) return;  // written by the band's head thread
-  const size_t p = (size_t)y * w + x;
-  if (!band_head(i, sb, nsb)) {
-    out[p] = in[p];
-    return;
+__device__ __forceinline__ void bands(int32_t *s, int pitch, int r0, int c0,
+                                      int sb, int k_lo, int k_hi, int l0,
+                                      int l1) {
+  const int nl = l1 - l0;
+  const int items = (k_hi - k_lo + 1) * nl;
+  for (int e = threadIdx.x; e < items; e += kLapThreads) {
+    const int kb = e / nl, l = l0 + (e - kb * nl);
+    const int start = (k_lo + kb) * sb - 2;
+    int32_t *p = ROWS ? s + (start - r0) * pitch + (l - c0)
+                      : s + (l - r0) * pitch + (start - c0);
+    const int step = ROWS ? pitch : 1;
+    int32_t v[4];
+#pragma unroll
+    for (int k = 0; k < 4; k++) v[k] = p[k * step];
+    lift4<FWD>(v);
+#pragma unroll
+    for (int k = 0; k < 4; k++) p[k * step] = v[k];
   }
-  const size_t step = ROWS ? (size_t)w : 1;
-  int32_t v[4];
-#pragma unroll
-  for (int k = 0; k < 4; k++) v[k] = in[p + k * step];
-  lift4<FWD>(v);
-#pragma unroll
-  for (int k = 0; k < 4; k++) out[p + k * step] = v[k];
 }
 
-// In place on `buf`.  Grid: x over lanes (columns for ROWS, else rows),
-// y over interior edges k = 1 .. nsb - 1.
-template <bool ROWS, bool FWD>
-__global__ void lap_band_pass(int32_t *__restrict__ buf, int h, int w,
-                              int sb) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int start = (blockIdx.y + 1) * sb - 2;
-  if (lane >= (ROWS ? w : h)) return;
-  const size_t p = ROWS ? (size_t)start * w + lane
-                        : (size_t)lane * w + start;
-  const size_t step = ROWS ? (size_t)w : 1;
-  int32_t v[4];
-#pragma unroll
-  for (int k = 0; k < 4; k++) v[k] = buf[p + k * step];
-  lift4<FWD>(v);
-#pragma unroll
-  for (int k = 0; k < 4; k++) buf[p + k * step] = v[k];
+template <bool FWD>
+__global__ void __launch_bounds__(kLapThreads)
+    lap_frame_kernel(const int32_t *__restrict__ in,
+                     int32_t *__restrict__ out, int h, int w, int sb_x,
+                     int sb_y, int th, int tw, int pitch, int vec) {
+  extern __shared__ __align__(16) int32_t s[];
+  const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
+  const int y1 = min(y0 + th, h), x1 = min(x0 + tw, w);
+  const int r0 = y0 - 2, c0 = x0 - 4;  // plane position of s[0]
+  // The loaded region: the tile, its halo, clipped to the plane.
+  const int ly0 = max(y0 - 2, 0), ly1 = min(y1 + 2, h);
+  const int lx0 = max(x0 - 4, 0), lx1 = min(x1 + 4, w);
+  const int tid = threadIdx.x;
+  // Every copy of the tile in flight at once (cp.async), then one wait.
+  const uint32_t sb = (uint32_t)__cvta_generic_to_shared(s);
+  if (vec) {
+    const int cpr = (lx1 - lx0) >> 2;  // 16-byte chunks per row
+    for (int e = tid; e < (ly1 - ly0) * cpr; e += kLapThreads) {
+      const int r = ly0 + e / cpr, c = lx0 + 4 * (e % cpr);
+      cp_async<16>(sb + 4 * ((r - r0) * pitch + (c - c0)),
+                   in + (size_t)r * w + c);
+    }
+  } else {
+    const int cols = lx1 - lx0;
+    for (int e = tid; e < (ly1 - ly0) * cols; e += kLapThreads) {
+      const int r = ly0 + e / cols, c = lx0 + e % cols;
+      cp_async<4>(sb + 4 * ((r - r0) * pitch + (c - c0)),
+                  in + (size_t)r * w + c);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // Edges whose bands touch the tile, per axis.
+  int ky_lo, ky_hi, kx_lo, kx_hi;
+  lap_edges(y0, y1, sb_y, h / sb_y, ky_lo, ky_hi);
+  lap_edges(x0, x1, sb_x, w / sb_x, kx_lo, kx_hi);
+  if (FWD) {
+    // Row bands over the tile's columns and 2 of the halo each side.
+    bands<true, FWD>(s, pitch, r0, c0, sb_y, ky_lo, ky_hi, max(x0 - 2, 0),
+                     min(x1 + 2, w));
+    __syncthreads();
+    bands<false, FWD>(s, pitch, r0, c0, sb_x, kx_lo, kx_hi, y0, y1);
+  } else {
+    bands<false, FWD>(s, pitch, r0, c0, sb_x, kx_lo, kx_hi, max(y0 - 2, 0),
+                      min(y1 + 2, h));
+    __syncthreads();
+    bands<true, FWD>(s, pitch, r0, c0, sb_y, ky_lo, ky_hi, x0, x1);
+  }
+  __syncthreads();
+  if (vec) {
+    const int cpr = (x1 - x0) >> 2;
+    for (int e = tid; e < (y1 - y0) * cpr; e += kLapThreads) {
+      const int r = y0 + e / cpr, c = x0 + 4 * (e % cpr);
+      *(int4 *)(out + (size_t)r * w + c) =
+          *(const int4 *)(s + (r - r0) * pitch + (c - c0));
+    }
+  } else {
+    const int cols = x1 - x0;
+    for (int e = tid; e < (y1 - y0) * cols; e += kLapThreads) {
+      const int r = y0 + e / cols, c = x0 + e % cols;
+      out[(size_t)r * w + c] = s[(r - r0) * pitch + (c - c0)];
+    }
+  }
 }
-
-constexpr int THREADS = 256;
 
 template <bool FWD>
 int launch(const int32_t *in, int32_t *out, int h, int w, int sb_x,
            int sb_y, cudaStream_t s) {
-  const int nsb_y = h / sb_y;
-  const int nsb_x = w / sb_x;
-  // Forward: rows then columns; inverse: columns then rows.
-  constexpr bool FIRST_ROWS = FWD;
-  const int sb1 = FIRST_ROWS ? sb_y : sb_x;
-  const int nsb1 = FIRST_ROWS ? nsb_y : nsb_x;
-  dim3 g1((w + THREADS - 1) / THREADS, h);
-  lap_copy_pass<FIRST_ROWS, FWD><<<g1, THREADS, 0, s>>>(in, out, h, w, sb1,
-                                                        nsb1);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int sb2 = FIRST_ROWS ? sb_x : sb_y;
-  const int nsb2 = FIRST_ROWS ? nsb_x : nsb_y;
-  if (nsb2 < 2) return 0;  // no interior edge on the second axis
-  const int lanes = FIRST_ROWS ? h : w;  // ROWS = !FIRST_ROWS
-  dim3 g2((lanes + THREADS - 1) / THREADS, nsb2 - 1);
-  lap_band_pass<!FIRST_ROWS, FWD><<<g2, THREADS, 0, s>>>(out, h, w, sb2);
+  const LapPlan p = lap_plan(h, w);
+  const int vec = w % 4 == 0 && (uintptr_t)in % 16 == 0 &&
+                  (uintptr_t)out % 16 == 0;
+  const dim3 grid(p.tiles_x, p.tiles_y);
+  lap_frame_kernel<FWD><<<grid, kLapThreads, p.smem_bytes, s>>>(
+      in, out, h, w, sb_x, sb_y, p.th, p.tw, p.pitch, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// in, out: (h, w) int32, contiguous, distinct.  Returns the launches'
-// cudaGetLastError().
+// in, out: (h, w) int32, contiguous, distinct, 4-byte aligned.  Returns
+// the launch's cudaGetLastError().
 extern "C" int lap_frame(const void *in, void *out, int h, int w, int sb_x,
                          int sb_y, int forward, void *stream) {
   const int32_t *src = (const int32_t *)in;
   int32_t *dst = (int32_t *)out;
   cudaStream_t s = (cudaStream_t)stream;
+  if (h <= 0 || w <= 0 || sb_x < 4 || sb_y < 4)
+    return (int)cudaErrorInvalidValue;
   return forward ? launch<true>(src, dst, h, w, sb_x, sb_y, s)
                  : launch<false>(src, dst, h, w, sb_x, sb_y, s);
 }

@@ -8,9 +8,11 @@ unblocks(fdct2d(blocks_of(frame, n))) (daala_tpu/models/keyframe.py
 :194, :288, :396).
 
 On the card the kernel is bound by bytes at small n and by int32 lifting
-ops and registers at large n: one block does the whole 2-D transform of
-its tiles in shared memory, reading and writing the frame once.  See the
-note in csrc/dct_frame.cu.
+operations at n = 64: a block does the whole 2-D transform of a strip
+of tiles in shared memory, so the frame is read once and written once.
+See the note in csrc/dct_frame.cu and the launch plan per shape in
+csrc/frame_plan.cuh.  The CUDA wrapper takes frames whose base is
+16-byte aligned (rows are, since w is a multiple of n >= 4).
 
 `dct_frame` launches the kernel for a tensor on a CUDA device and runs
 the plain version only for a tensor on the CPU; there is no fallback.
@@ -27,6 +29,9 @@ from daala_tpu_torch.ops.cuda import _build
 from daala_tpu_torch.utils import devstats
 
 NAME = "dct_frame"
+# The source's __global__ functions (dct_tile_kernel: the shapes that keep
+# the first design).
+KERNELS = ("dct_frame_kernel", "dct_tile_kernel")
 SIZES = (4, 8, 16, 32, 64)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -64,6 +69,9 @@ def dct_frame_cuda(frame, n, forward=True):
     _check(frame, n)
     if frame.device.type != "cuda":
         raise ValueError("dct_frame_cuda takes a CUDA tensor")
+    if frame.data_ptr() % 16:
+        raise ValueError("dct_frame_cuda takes a frame whose base is 16-byte "
+                         "aligned, got address %#x" % frame.data_ptr())
     lib = build()
     h, w = frame.shape
     out = torch.empty_like(frame)

@@ -6,10 +6,11 @@ reversible 4-tap lifting (pre_filter4 / post_filter4) across the 4 rows
 or columns straddling every superblock edge.  Forward does rows then
 columns; inverse does columns then rows.
 
-On the card the kernel is bound by bytes and launch cost, not
-arithmetic: it copies the plane once and lifts a few percent of its
-pixels, in two launches (the second pass reads the corners the first
-wrote).  See the note in csrc/lap_frame.cu.
+On the card the kernel is bound by bytes, not arithmetic: it copies the
+plane once and lifts a few percent of its pixels, in one launch of
+tiles held in shared memory with a halo that holds every band and
+corner they touch.  See the note in csrc/lap_frame.cu and the launch
+plan in csrc/frame_plan.cuh.
 
 `lap_frame` launches the kernel for a tensor on a CUDA device and runs
 the plain version only for a tensor on the CPU; there is no fallback.
@@ -26,6 +27,7 @@ from daala_tpu_torch.ops.cuda import _build
 from daala_tpu_torch.utils import devstats
 
 NAME = "lap_frame"
+KERNELS = ("lap_frame_kernel",)  # the source's __global__ functions
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 

@@ -46,6 +46,7 @@ from daala_tpu_torch.utils import devstats
 
 SOURCE = "obmc_leaf"
 BLEND, CELLS = "obmc_blend", "obmc_leaf_cells"
+KERNELS = ("obmc_blend_kernel", "obmc_leaf_cells_kernel")  # __global__
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     BLEND: [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P],

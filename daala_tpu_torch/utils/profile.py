@@ -35,13 +35,16 @@ import time
 import numpy as np
 import torch
 
+from daala_tpu_torch.ops.cuda import dct_kernels, lap_kernels, obmc_kernels
+
 W, H, NFRAMES = 1920, 1080, 4
 # bench.py's production trial-pass preset (bench.py:87-90).
 ENCODER_KW = dict(quant=25, complexity=7, trial_rate_approx=True,
                   trial_prune_boost=3.0, trial_prune_rate_gate=0.5)
-# Name fragments of the kernels in csrc/ (their __global__ functions).
-HAND_KERNELS = ("dct_frame_kernel", "lap_copy_pass", "lap_band_pass",
-                "obmc_blend_kernel", "obmc_leaf_cells_kernel")
+# Name fragments of the kernels in csrc/ (their __global__ functions, as
+# each wrapper module lists them).
+HAND_KERNELS = (dct_kernels.KERNELS + lap_kernels.KERNELS
+                + obmc_kernels.KERNELS)
 REPS = 2  # timed encodes of the clip after the warm-up
 
 

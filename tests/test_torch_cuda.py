@@ -68,6 +68,119 @@ def test_lap_kernel_matches_plain(card, h, w, sb):
     torch.cuda.synchronize()
 
 
+def _extreme_plane(card, h, w, seed):
+    """int32 values over the whole range, with rows of the extremes, so
+    that the lifting's wraparound paths run."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2**31, 2**31, (h, w), dtype=np.int64)
+    x[0], x[1] = -2**31, 2**31 - 1
+    x[2, ::2], x[2, 1::2] = -2**31, 2**31 - 1
+    return torch.from_numpy(x.astype(np.int32)).to(card)
+
+
+def _offset_view(x, offset):
+    """A contiguous copy of x that starts `offset` int32 words into its
+    storage."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    v = flat[offset:].view(x.shape)
+    v.copy_(x)
+    assert v.is_contiguous() and v.storage_offset() == offset
+    return v
+
+
+@pytest.mark.parametrize("h,w,n", [(128, 192, n) for n in (4, 8, 16, 32, 64)]
+                         + [(64, 96, n) for n in (4, 8, 16, 32)])
+def test_dct_kernel_on_small_planes(card, h, w, n):
+    """The planes of a 192x128 encode (luma and chroma), where the grid
+    is far from full and the strips are 64 or 32 columns wide."""
+    x = _plane(card, h, w, n + h)
+    for fwd in (True, False):
+        assert torch.equal(dct_kernels.dct_frame_cuda(x, n, fwd),
+                           dct_kernels.dct_frame_plain(x, n, fwd))
+    y = dct_kernels.dct_frame_cuda(x, n, True)
+    assert torch.equal(dct_kernels.dct_frame_cuda(y, n, False), x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+def test_dct_kernel_at_int32_extremes(card, n):
+    """Wraparound: equal to the plain version, and still reversible (the
+    networks are lifting steps, invertible modulo 2^32)."""
+    x = _extreme_plane(card, 128, 192, n)
+    for fwd in (True, False):
+        assert torch.equal(dct_kernels.dct_frame_cuda(x, n, fwd),
+                           dct_kernels.dct_frame_plain(x, n, fwd))
+    y = dct_kernels.dct_frame_cuda(x, n, True)
+    assert torch.equal(dct_kernels.dct_frame_cuda(y, n, False), x)
+    torch.cuda.synchronize()
+
+
+def test_dct_kernel_takes_aligned_views_and_refuses_misaligned(card):
+    x = _plane(card, 128, 192, 5)
+    v = _offset_view(x, 4)  # 16 bytes in: aligned
+    for n in (8, 64):
+        assert torch.equal(dct_kernels.dct_frame_cuda(v, n, True),
+                           dct_kernels.dct_frame_plain(x, n, True))
+    for offset in (1, 2, 3):
+        with pytest.raises(ValueError, match="16-byte"):
+            dct_kernels.dct_frame_cuda(_offset_view(x, offset), 8, True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("h,w,sb_x,sb_y", [(1088, 960, 32, 64),
+                                           (128, 192, 32, 64),
+                                           (100, 150, 64, 32),
+                                           (76, 132, 8, 16)])
+def test_lap_kernel_per_axis_superblocks(card, h, w, sb_x, sb_y):
+    """sb_x != sb_y (4:2:2 chroma, and small superblocks with several
+    bands a tile)."""
+    x = _plane(card, h, w, sb_x + sb_y)
+    for fwd in (True, False):
+        assert torch.equal(lap_kernels.lap_frame_cuda(x, sb_x, sb_y, fwd),
+                           lap_kernels.lap_frame_plain(x, sb_x, sb_y, fwd))
+    y = lap_kernels.lap_frame_cuda(x, sb_x, sb_y, True)
+    assert torch.equal(lap_kernels.lap_frame_cuda(y, sb_x, sb_y, False), x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("h,w", [(66, 102), (130, 254)])
+def test_lap_kernel_rows_not_16_byte_aligned(card, h, w):
+    """Rows of 102 and 254 words: the 4-byte copies."""
+    x = _plane(card, h, w, w)
+    for fwd in (True, False):
+        assert torch.equal(lap_kernels.lap_frame_cuda(x, 32, 32, fwd),
+                           lap_kernels.lap_frame_plain(x, 32, 32, fwd))
+    y = lap_kernels.lap_frame_cuda(x, 32, 32, True)
+    assert torch.equal(lap_kernels.lap_frame_cuda(y, 32, 32, False), x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_lap_kernel_on_views_with_a_storage_offset(card, offset):
+    """A view 16 bytes in takes the 16-byte copies, one 4 or 8 bytes in
+    the 4-byte copies; both equal the plain version."""
+    x = _plane(card, 128, 192, offset)
+    v = _offset_view(x, offset)
+    for fwd in (True, False):
+        assert torch.equal(lap_kernels.lap_frame_cuda(v, 64, 64, fwd),
+                           lap_kernels.lap_frame_plain(x, 64, 64, fwd))
+    y = lap_kernels.lap_frame_cuda(v, 64, 64, True)
+    assert torch.equal(lap_kernels.lap_frame_cuda(_offset_view(y, offset),
+                                                  64, 64, False), x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("h,w,sb", [(1088, 1920, 64), (100, 150, 32)])
+def test_lap_kernel_at_int32_extremes(card, h, w, sb):
+    """Wraparound: equal to the plain version (post(pre(x)) == x holds
+    only within the codec's range, which the other cases check)."""
+    x = _extreme_plane(card, h, w, sb)
+    for fwd in (True, False):
+        assert torch.equal(lap_kernels.lap_frame_cuda(x, sb, sb, fwd),
+                           lap_kernels.lap_frame_plain(x, sb, sb, fwd))
+    torch.cuda.synchronize()
+
+
 def test_launch_error_is_reported(card):
     """The C entry returns the CUDA error of a refused launch (an empty
     grid) or of an unsupported size, and the wrapper's check raises."""

@@ -14,7 +14,7 @@ def test_device_summary_classes_and_union():
     ev = [
         {"cat": "kernel", "name": "void dct_frame_kernel<8>(int const*)",
          "ts": 0.0, "dur": 10.0},
-        {"cat": "kernel", "name": "void lap_band_pass<true>(int*)",
+        {"cat": "kernel", "name": "void lap_frame_kernel<true>(int*)",
          "ts": 5.0, "dur": 10.0},  # overlaps the first: 15 us in all
         {"cat": "kernel", "name": "at::native::vectorized_elementwise",
          "ts": 100.0, "dur": 4.0},
@@ -60,18 +60,20 @@ def test_devstats_span_accumulates():
 
 def test_hand_kernels_name_every_kernel():
     """Every __global__ function of csrc/ is counted as a hand kernel in
-    the traces."""
+    the traces, and named in its wrapper module's KERNELS."""
     import glob
     import os
-    import re
+    from chip_smoke import global_names
+    from daala_tpu_torch.ops.cuda import (dct_kernels, lap_kernels,
+                                          obmc_kernels)
     from daala_tpu_torch.utils.profile import HAND_KERNELS
     csrc = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "daala_tpu_torch", "csrc")
     names = set()
     for path in glob.glob(os.path.join(csrc, "*.cu")):
-        with open(path) as f:
-            names |= set(re.findall(
-                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
-                r"(\w+)", f.read()))
-    assert len(names) >= 5
+        names |= set(global_names(path))
+    assert len(names) >= 4
     assert all(any(k in n for k in HAND_KERNELS) for n in names), names
+    listed = (dct_kernels.KERNELS + lap_kernels.KERNELS
+              + obmc_kernels.KERNELS)
+    assert set(listed) == names
