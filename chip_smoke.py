@@ -60,6 +60,22 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    run's packets to daala_tpu's host encoder).  The packets must be
    byte-identical, and both analysis kernels must have launched in the
    card's run (launch counts are reset just before it).
+3c. The lean tier (bench.py's `device` configuration:
+   use_device_analysis=False, use_device_pvq=True) on phase 3's clip
+   and preset on "cuda", encoder check on: decoded by the port's
+   Decoder, its luma PSNR within 0.3 dB of phase 3's (the host
+   search, byte-identical to daala_tpu's host encoder) and its bytes
+   within -10% / +5% of phase 3's (on this clip the lean search, like
+   JAX's, codes the inter frames about 6% smaller than the host
+   search); lap_frame and dct_frame launched; every band_search call
+   ran on the card; under half of phase 3's device->host bytes.  Prints
+   its devstats, Mpix/s, the search_frame and SAD-field spans, the rows
+   the search marked invalid (searched on the host), and, from
+   utils/profile.py's torch.profiler trace of a fresh encoder's
+   keyframe and first inter frame, the launches, device time and rows
+   of every band_search call.
+3d. The full-pel SAD fields (models/mefield.py) of one 1080p frame pair
+   on the card and on the CPU: equal.
 4. The colour-sweep encode (mv_refine_mode="sweep", encoder check on):
    (a) a textured 640x368 clip whose mesh subdivides, 4 frames, quant
    25, complexity 7, through the port's Encoder on "cuda" and on "cpu":
@@ -67,6 +83,11 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    sweep on "cuda", its bytes, Mpix/s and devstats (the refine_sweep
    span) printed as information.  obmc_leaf_cells must have launched in
    both card runs.
+4c. (a)'s clip in the lean tier on "cuda" and on "cpu", each with the
+   encoder check on.  At every search_frame call of the card's run the
+   CPU searches the same planes too: the two decision tables must agree
+   on at least 99% of rows in every frame (the float32 RDO may flip
+   near-ties between the devices; the rows that differ are printed).
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
    obmc_leaf_cells from phase 4b), error, times and bound; then, as the
@@ -834,7 +855,26 @@ def encode(enc, frames):
     return pk, time.perf_counter() - t0
 
 
+def luma_psnr(frames, packets, info):
+    """Mean over frames of the luma PSNR of the port's Decoder's output
+    of `packets` against `frames`."""
+    from daala_tpu_torch.codec.decoder import Decoder
+    dec = Decoder(info)
+    outs = [o for p in packets for o in dec.decode_packet(p)]
+    if len(outs) != len(frames):
+        raise AssertionError("decoded %d frames of %d" % (len(outs),
+                                                         len(frames)))
+    out = []
+    for fr, o in zip(frames, outs):
+        err = fr[0].astype(np.float64) - np.asarray(o[0], np.float64)
+        out.append(10 * np.log10(255.0 ** 2 / max(np.mean(err ** 2),
+                                                   1e-12)))
+    return float(np.mean(out))
+
+
 def phase_encoder(torch, dev):
+    """Phase 3; returns its card run's launches, packets, device->host
+    bytes and luma PSNR."""
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.encoder import Encoder
     from daala_tpu_torch.utils import devstats
@@ -866,7 +906,141 @@ def phase_encoder(torch, dev):
     for name in ("lap_frame", "dct_frame"):
         if snap["launches"].get(name, 0) <= 0:
             raise AssertionError("%s never launched on the main path" % name)
-    return snap["launches"]
+    psnr = luma_psnr(frames, card_pk, headers.Info(pic_width=W, pic_height=H))
+    print("encode: luma PSNR %.4f dB (port Decoder)" % psnr)
+    return dict(launches=snap["launches"], packets=card_pk,
+                d2h_bytes=snap["d2h_bytes"], psnr=psnr)
+
+
+def _watch_band_search(calls):
+    """Replace pvqsearch.band_search by a wrapper that appends (n, rows,
+    input device, output device) of every call to `calls`; returns the
+    function that restores it."""
+    from daala_tpu_torch.models import pvqsearch as PS
+    real = PS.band_search
+
+    def watched(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args[9], int(args[2].shape[0]), args[0].device.type,
+                      out[0].device.type))
+        return out
+    PS.band_search = watched
+
+    def restore():
+        PS.band_search = real
+    return restore
+
+
+def lean_encoder(info, device, **kw):
+    from daala_tpu_torch.codec.encoder import Encoder
+    return Encoder(info, device=device, use_device_analysis=False,
+                   use_device_pvq=True, **kw)
+
+
+def phase_lean(torch, dev, ref):
+    """Phase 3c against phase 3's results `ref`; returns the launches per
+    band_search call of the traced frames."""
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.utils import devstats
+    from daala_tpu_torch.utils.profile import (ENCODER_KW as kw, H,
+                                               NFRAMES, W, traced,
+                                               translation_clip)
+    frames = translation_clip()
+    info = headers.Info(pic_width=W, pic_height=H)
+    calls = []
+    restore = _watch_band_search(calls)
+    try:
+        enc = lean_encoder(info, dev, **kw)
+        devstats.reset()
+        pk, secs = encode(enc, frames)
+        torch.cuda.synchronize()
+        snap = devstats.snapshot()
+        if {(c[2], c[3]) for c in calls} != {(dev.type, dev.type)}:
+            raise AssertionError("band_search ran off the card: %s"
+                                 % sorted({c[2:] for c in calls}))
+        nbytes = sum(map(len, pk))
+        ref_bytes = sum(map(len, ref["packets"]))
+        psnr = luma_psnr(frames, pk, info)
+        print("lean: %d packets, %d bytes (analysis tier %d, %+.3f%%); luma "
+              "PSNR %.4f dB (analysis tier %.4f, %+.4f dB); %.3f Mpix/s "
+              "(%.2f s); encoder check passed, decoded by the port's "
+              "Decoder" % (len(pk), nbytes, ref_bytes,
+                           100.0 * (nbytes - ref_bytes) / ref_bytes, psnr,
+                           ref["psnr"], psnr - ref["psnr"],
+                           NFRAMES * W * H / 1e6 / secs, secs))
+        print("lean: spans %s; band_search calls %d, rows searched %d, rows "
+              "marked invalid (searched on the host) %d; d2h %d bytes "
+              "(analysis tier %d, %.4f of it)" % (
+                  {k: round(v, 4) for k, v in snap["spans_s"].items()},
+                  len(calls), snap["counts"].get("pvq_rows", 0),
+                  snap["counts"].get("pvq_invalid_rows", 0),
+                  snap["d2h_bytes"], ref["d2h_bytes"],
+                  snap["d2h_bytes"] / ref["d2h_bytes"]))
+        print("devstats: " + json.dumps(snap, sort_keys=True))
+        # The lean search (as JAX's, whose tables it equals on the same
+        # planes) codes this clip's inter frames about 6% smaller than
+        # the host search, so the lower bound is -10%.
+        if not 0.90 * ref_bytes < nbytes < 1.05 * ref_bytes:
+            raise AssertionError("lean bytes %d not within -10%% / +5%% of "
+                                 "%d" % (nbytes, ref_bytes))
+        if abs(psnr - ref["psnr"]) >= 0.3:
+            raise AssertionError("lean PSNR %.4f not within 0.3 dB of %.4f"
+                                 % (psnr, ref["psnr"]))
+        for name in ("lap_frame", "dct_frame"):
+            if snap["launches"].get(name, 0) <= 0:
+                raise AssertionError("%s never launched in the lean tier"
+                                     % name)
+        if not snap["d2h_bytes"] < 0.5 * ref["d2h_bytes"]:
+            raise AssertionError("lean d2h %d bytes not under half of %d"
+                                 % (snap["d2h_bytes"], ref["d2h_bytes"]))
+        # Launches per band_search call, from utils/profile.py's trace
+        # of a fresh encoder's keyframe and first inter frame (it prints
+        # each call's launches and device time); here each call gets its
+        # band length and rows.
+        del calls[:]
+        os.makedirs(BUILD, exist_ok=True)
+        res = traced(frames, dev, BUILD, False, lean=True)
+        work = [dict(frame=label, **w) for label in ("keyframe", "inter")
+                for w in res[label]["band_search"]]
+        if len(work) != len(calls):
+            print("lean trace: %d band_search ranges for %d calls; "
+                  "launches per call not read" % (len(work), len(calls)))
+            work = []
+        per_call = []
+        for (n, rows, _, _), w in zip(calls, work):
+            per_call.append(dict(n=n, rows=rows, **w))
+            print("lean trace %s: band_search n=%d, %d rows: %d launches, "
+                  "device %.3f ms, host wall %.3f ms"
+                  % (w["frame"], n, rows, w["launches"], w["device_ms"],
+                     w["wall_ms"]))
+    finally:
+        restore()
+    return per_call
+
+
+def phase_fields(torch, dev):
+    """Phase 3d: the SAD fields of one 1080p frame pair, card and CPU."""
+    from daala_tpu_torch.codec.mc import OD_BUFFER_PADDING as pad
+    from daala_tpu_torch.models import mefield as MF
+    from daala_tpu_torch.utils.profile import H, W, translation_clip
+    frames = translation_clip(nframes=2)
+    cur = frames[1][0]
+    ref = np.pad(frames[0][0], pad, mode="edge")
+    nv, nh = ((H + 31) // 32 * 32) >> 3, ((W + 31) // 32 * 32) >> 3
+    out = {}
+    for d in (dev, "cpu"):
+        MF.fullpel_sad_fields(cur[:64, :64], [ref[:64 + 2 * pad,
+                                                  :64 + 2 * pad]],
+                              pad, (64, 64), 8, 8, device=d)  # warm-up
+        t0 = time.perf_counter()
+        out[str(d)] = MF.fullpel_sad_fields(cur, [ref], pad, (H, W), nv, nh,
+                                            device=d)[0]
+        out[str(d) + "_s"] = time.perf_counter() - t0
+    if not np.array_equal(out[str(dev)], out["cpu"]):
+        raise AssertionError("SAD fields differ between %s and cpu" % dev)
+    print("fields: 1920x1080, r=16, %s fields equal between %s (%.4f s, "
+          "with the upload and fetch) and cpu (%.4f s)"
+          % (out["cpu"].shape, dev, out[str(dev) + "_s"], out["cpu_s"]))
 
 
 def phase_sweep(torch, dev):
@@ -910,6 +1084,78 @@ def phase_sweep(torch, dev):
     if snap["launches"].get("obmc_leaf_cells", 0) <= 0:
         raise AssertionError("obmc_leaf_cells never launched (b)")
     return snap["launches"]
+
+
+def table_rows(table):
+    """{(pli, bs, by4, bx4, band): (noref, qg, itheta, ts, k, valid, y)}
+    of a DevicePVQTable."""
+    out = {}
+    for g in table.groups:
+        for band, r in g["bands"].items():
+            for i in range(len(g["by4"])):
+                out[(g["pli"], g["bs"], int(g["by4"][i]), int(g["bx4"][i]),
+                     band)] = tuple(int(r[k][i]) for k in (
+                         "noref", "qg", "itheta", "ts", "k", "valid")) \
+                    + (tuple(int(v) for v in r["y"][i]),)
+    return out
+
+
+def phase_lean_small(torch, dev):
+    """Phase 4c."""
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.models import pvqsearch as PS
+    w, h = 640, 368
+    frames = textured_clip(w, h, 4)
+    info = headers.Info(pic_width=w, pic_height=h)
+    real = PS.search_frame
+    agree = []
+
+    def both(st, info, quantizer, d_planes, md_planes, lam,
+             is_keyframe=False, use_masking=True):
+        cpu = real(st, info, quantizer, [p.cpu() for p in d_planes],
+                   None if md_planes is None
+                   else [p.cpu() for p in md_planes], lam,
+                   is_keyframe=is_keyframe, use_masking=use_masking)()
+        finish = real(st, info, quantizer, d_planes, md_planes, lam,
+                      is_keyframe=is_keyframe, use_masking=use_masking)
+
+        def done():
+            got = finish()
+            a, b = table_rows(got), table_rows(cpu)
+            if a.keys() != b.keys():
+                raise AssertionError("card and cpu tables hold other rows")
+            diff = sorted(k for k in a if a[k] != b[k])
+            agree.append((len(a) - len(diff), len(a)))
+            print("lean %dx%d frame %d (%s): card and cpu tables agree on "
+                  "%d of %d rows" % (w, h, len(agree) - 1,
+                                     "keyframe" if is_keyframe else "inter",
+                                     len(a) - len(diff), len(a)))
+            for k in diff[:8]:
+                print("  differs at (pli, bs, by4, bx4, band) %s: card %s, "
+                      "cpu %s" % (k, a[k][:6], b[k][:6]))
+            return got
+        return done
+
+    PS.search_frame = both
+    try:
+        card_pk, card_s = encode(lean_encoder(info, dev, quant=25,
+                                              complexity=7), frames)
+    finally:
+        PS.search_frame = real
+    cpu_pk, cpu_s = encode(lean_encoder(info, "cpu", quant=25,
+                                        complexity=7), frames)
+    print("lean %dx%d: %s %d bytes (%.2f s), cpu %d bytes (%.2f s), packets "
+          "%s; encoder check passed on both" % (
+              w, h, dev, sum(map(len, card_pk)), card_s,
+              sum(map(len, cpu_pk)), cpu_s,
+              "identical" if card_pk == cpu_pk else "differ"))
+    if len(agree) != len(frames):
+        raise AssertionError("%d searched frames of %d" % (len(agree),
+                                                            len(frames)))
+    for same, total in agree:
+        if same < 0.99 * total:
+            raise AssertionError("card and cpu tables agree on %d of %d rows"
+                                 % (same, total))
 
 
 def kernel_line(kern, launches):
@@ -970,9 +1216,13 @@ def main(argv=None):
     phase_kernels(torch, dev, kern)
     phase_obmc_kernels(torch, dev, kern)
     launches = phase_obmc_frame(torch, dev)
-    launches.update({k: v for k, v in phase_encoder(torch, dev).items()
+    ref = phase_encoder(torch, dev)
+    launches.update({k: v for k, v in ref["launches"].items()
                      if k in ("lap_frame", "dct_frame")})
+    phase_lean(torch, dev, ref)
+    phase_fields(torch, dev)
     launches["obmc_leaf_cells"] = phase_sweep(torch, dev)["obmc_leaf_cells"]
+    phase_lean_small(torch, dev)
     leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:

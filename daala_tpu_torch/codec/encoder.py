@@ -25,22 +25,31 @@ tests/test_torch_copies.py holds it to the original.  It is the port's
 `Encoder`, with the port's device tier built in where the original has
 its JAX one; every other method is the original's:
 
-- `device` ('cpu' or 'cuda[:N]', required) is where the analysis front
-  end runs: models/keyframe.py computes the RDO trial pass's transform
-  pyramid and the final pass's planes on it for every frame, and the
-  native frame pass consumes them byte-identically.  Only the native
-  pass reads them, so `_encode_coefficients` raises unless it runs, and
-  the original's Python coefficient path (`_compute_dcts`,
-  `_block_encode`, `_encode_recursive`, the Haar DC quantizers,
-  `_encode_dering`, `_dering_rdo`) is left out.
+- `device` ('cpu' or 'cuda[:N]', required) is where the device tier
+  runs.  Its two switches carry the original's attribute names:
+  - `use_device_analysis` (default True), the byte-identical tier:
+    models/keyframe.py computes the RDO trial pass's transform pyramid
+    and the final pass's planes on `device` for every frame, and the
+    native frame pass consumes them byte-identically;
+  - `use_device_pvq` (default False), the lean tier: the final pass's
+    analysis stays on `device` as the input of the PVQ band search
+    (models/pvqsearch.py search_frame), only its decision table comes
+    back, and the native pass replays it (`_device_pvq_tab`) and
+    computes its own transforms.  bench.py's `device` configuration is
+    use_device_analysis=False, use_device_pvq=True.
+  With either on, the full-pel SAD fields of inter frames
+  (models/mefield.py) run on `device` and the native motion search
+  reads them as exact lookups.  Only the native pass reads the planes,
+  so `_encode_coefficients` raises unless it runs, and the original's
+  Python coefficient path (`_compute_dcts`, `_block_encode`,
+  `_encode_recursive`, the Haar DC quantizers, `_encode_dering`,
+  `_dering_rdo`) is left out.
 - `mv_refine_mode` 'sweep' runs the colour-sweep MV refinement on
   `device` (mvest.refine_sweep) after the native motion search, where
   the original runs its JAX one; it raises without the native motion
   search.
-- The JAX tiers the port does not have yet (the SAD fields of
-  models/mefield.py, device dering, the device PVQ search) are left
-  out with their switches (`use_device_analysis`, `use_device_pvq`,
-  `device_put_fn`).
+- Device dering (`_device_dering`) and the sharding hook
+  (`device_put_fn`), which the port does not have, are left out.
 """
 
 from __future__ import annotations
@@ -113,7 +122,8 @@ class Encoder:
                  bitrate=0, trial_rate_approx=False,
                  trial_prune_boost=1.0, trial_prune_rate_gate=0.5,
                  trial_prune_gate_kf=0.05, *, device,
-                 mv_refine_mode="greedy"):
+                 mv_refine_mode="greedy", use_device_analysis=True,
+                 use_device_pvq=False):
         self.info = info
         self.state = CodecState(info)
         # OD_SET_QUANT semantics (reference: src/encode.c OD_SET_QUANT).
@@ -235,9 +245,16 @@ class Encoder:
         # (reference: src/encode.c:3231-3272).
         self.enable_encoder_check = False
         self._check_dec = None
-        # The device tier: the analysis front end, and the colour sweep
-        # when mv_refine_mode is "sweep", run on `device`.
+        # The device tier: the analysis front end (byte-identical tier)
+        # or the PVQ band search on its resident output (lean tier), the
+        # SAD fields with either, and the colour sweep when
+        # mv_refine_mode is "sweep", run on `device`.
         self.device = resolve(device)
+        self.use_device_analysis = bool(use_device_analysis)
+        self.use_device_pvq = bool(use_device_pvq)
+        if not (self.use_device_analysis or self.use_device_pvq):
+            raise ValueError("the port's Encoder runs a device tier: set "
+                             "use_device_analysis or use_device_pvq")
         self.mv_refine_mode = mv_refine_mode
         # Called right after motion estimation with (frame_count, grid,
         # ctx); None for no hook.
@@ -692,6 +709,28 @@ class Encoder:
                         np.float64)
         cfg[76] = 1 if self._bs_prune_enabled() else 0
         cfg[78] = 1 if self.trial_rate_approx else 0
+        # Device PVQ decision table (models/pvqsearch.py): flatten the
+        # per-(block, band) decisions into dense arrays so the native
+        # EC pass replays them through ec_pvq_theta_forced — keeping
+        # the C++ entropy throughput AND the device search.
+        tab = getattr(self, "_device_pvq_tab", None)
+        if (tab is not None and not rdo_only
+                and not use_haar_wavelet):
+            # Vectorized flattening (models/pvqsearch.py
+            # DevicePVQTable.native_arrays): per-plane 4x4 grids,
+            # concatenated (the native side derives the same plane
+            # base offsets from F.pl dims).
+            idx, meta, yoff, ypool, sd = tab.native_arrays(st, info)
+            idx = np.ascontiguousarray(idx, np.int32)
+            meta = np.ascontiguousarray(meta, np.int32)
+            yoff = np.ascontiguousarray(yoff, np.int64)
+            ypool = np.ascontiguousarray(ypool, np.int32)
+            sd = np.ascontiguousarray(sd, np.float64)
+            tabp = np.array([idx.ctypes.data, meta.ctypes.data,
+                             yoff.ctypes.data, ypool.ctypes.data,
+                             sd.ctypes.data], np.int64)
+            keep.extend([idx, meta, yoff, ypool, sd, tabp])
+            cfg[77] = tabp.ctypes.data
         ap = self._native_adapt_ptrs()
         err = lib.fc_encode_frame(self.enc._h, ap.ctypes.data,
                                   cfg.ctypes.data, dcfg.ctypes.data)
@@ -839,6 +878,18 @@ class Encoder:
             # default stays at the modeled value.
             lam_sad = max(16, (self.target_quantizer * 11) >> 7)
             lam_sad = int(lam_sad * getattr(self, "lam_sad_scale", 1))
+            fp_fields = None
+            if self.use_device_analysis or self.use_device_pvq:
+                # Device full-pel SAD fields (models/mefield.py): the
+                # BMA window costs batch on `device`; the native search
+                # consumes them as exact lookups, decisions unchanged.
+                from daala_tpu_torch.models import mefield as MF
+                fp_fields = MF.fullpel_sad_fields(
+                    search_luma,
+                    [rimg.planes[0] for _, rimg in refs],
+                    MC.OD_BUFFER_PADDING, vis, self.mv_grid.nvmvbs,
+                    self.mv_grid.nhmvbs, r=self.search_range,
+                    device=self.device)
             # "sweep" runs the refinement as batched device color
             # sweeps (mvest.refine_sweep) instead of the host greedy
             # loop; BMA + mesh subdivision stay in the native engine.
@@ -855,6 +906,7 @@ class Encoder:
                                  decimate=getattr(self, "mv_decimate",
                                                   0),
                                  min_level=self.mv_level_min,
+                                 fp_fields=fp_fields,
                                  telescope=getattr(self, "mv_telescope",
                                                    0),
                                  use_satd=getattr(self, "mv_satd", 0),
@@ -919,9 +971,9 @@ class Encoder:
         # complexity >= 2 runs the full trial-encode RDO merge pass from
         # an all-4x4 map; complexity 0-1 uses the open-loop variance
         # splitter; fixed_bsize overrides for tests.
-        # The device analysis front end runs for every frame but the
-        # Haar-wavelet (lossless keyframe) ones.
-        device_on = not use_haar_wavelet
+        # The device analysis front end (use_device_analysis) runs for
+        # every frame but the Haar-wavelet (lossless keyframe) ones.
+        device_on = self.use_device_analysis and not use_haar_wavelet
         self._device_rdo = None
         if use_haar_wavelet:
             st.init_superblock_split(4)
@@ -961,29 +1013,56 @@ class Encoder:
                                         st.quantizer)
         # Device analysis front end (models/keyframe.py): the frame's
         # DCT pyramid on `device` for the final pass (the block-size map
-        # is final here at every complexity), consumed by the native
-        # frame pass byte-identically.  Covers 8-bit and full-precision
-        # inputs.
+        # is final here at every complexity).  Two tiers:
+        #   use_device_analysis: the native frame pass consumes the
+        #     fetched planes byte-identically;
+        #   use_device_pvq: the planes stay on `device` as the input of
+        #     the PVQ band search (models/pvqsearch.py); only its
+        #     decision table comes back and the native pass computes its
+        #     own transforms.
         self._device_d = None
         self._device_md = None
-        if device_on:
+        self._device_pvq_tab = None
+        device_search = (self.use_device_pvq
+                         and not use_haar_wavelet
+                         and st.quantizer != 0)
+        if device_on or device_search:
             from daala_tpu_torch.models import keyframe as KF
+            dev_d = dev_md = None
             if is_keyframe:
-                self._device_d = KF.analyze_keyframe(
+                dev_d, fetch_np = KF.analyze_keyframe(
                     st, info, padded_in, st.quantizer == 0, self.device)
             else:
                 # Inter front-end: input + OBMC prediction through the
                 # same device transform pipeline.
                 mc_planes = [self_img.plane_view(pli)
                              for pli in range(info.nplanes)]
-                self._device_d, self._device_md = KF.analyze_inter(
+                dev_d, dev_md, fetch_np = KF.analyze_inter(
                     st, info, padded_in, mc_planes, st.quantizer == 0,
                     self.device)
+            # Device PVQ band search, queued on the still-resident
+            # analysis coefficients and finished after the analysis
+            # fetch (reference search: src/pvq_encoder.c:333).
+            finish_pvq = None
+            if device_search:
+                from daala_tpu_torch.models import pvqsearch as PS
+                finish_pvq = PS.search_frame(
+                    st, info, st.quantizer, dev_d, dev_md,
+                    self.pvq_norm_lambda, is_keyframe=bool(is_keyframe),
+                    use_masking=bool(self.use_activity_masking))
+            if device_on:
+                if is_keyframe:
+                    self._device_d = fetch_np()
+                else:
+                    self._device_d, self._device_md = fetch_np()
+            if finish_pvq is not None:
+                self._device_pvq_tab = finish_pvq()
         ctmp = self._encode_coefficients(padded_in, self_img, is_keyframe,
                                          use_haar_wavelet, planes_u8,
                                          rdo_only=0)
         self._device_d = None
         self._device_md = None
+        self._device_pvq_tab = None
         # Store the reconstruction into SELF + rotate references.
         fpr = bool(info.full_precision_references)
         for pli in range(nplanes):

@@ -207,8 +207,10 @@ def _mask_tensors(masks, device):
 
 
 def analyze_keyframe(state, info, padded_planes, lossless, device):
-    """Run the device analysis for every plane of a keyframe; returns the
-    list of `d` planes as numpy int32 arrays (host EC consumes them)."""
+    """Run the device analysis for every plane of a keyframe; returns
+    (d_dev, finish): the `d` planes as tensors on `device` (the PVQ band
+    search reads them there) and a zero-argument finish() that fetches
+    them as numpy int32 arrays (the host EC consumes those)."""
     device = resolve(device)
     out = []
     with devstats.span("analyze_keyframe"):
@@ -224,7 +226,12 @@ def analyze_keyframe(state, info, padded_planes, lossless, device):
             out.append(keyframe_analysis_plane(
                 plane, mask_args, xdec=xdec, ydec=ydec,
                 lossless=bool(lossless), fpr_mode=fpr_mode))
-        return [devstats.fetch(d) for d in out]
+
+    def finish():
+        with devstats.span("analyze_keyframe"):
+            devstats.prefetch(*out)
+            return [devstats.fetch(d) for d in out]
+    return out, finish
 
 
 def _pad_follows_prediction(c, mc, pic_w, pic_h):
@@ -268,7 +275,10 @@ def inter_analysis_plane(plane, mc_plane, mask_args, xdec=0, ydec=0,
 def analyze_inter(state, info, padded_planes, mc_planes, lossless, device):
     """Device (d, md) analysis for every plane of an inter frame; the
     prediction planes come from the OBMC stage (OD_FRAME_SELF).  Returns
-    the lists of numpy int32 `d` and `md` planes."""
+    (d_dev, md_dev, finish): the per-plane tensors on `device` (for the
+    PVQ band search) and a zero-argument finish() that fetches them as
+    the lists of numpy int32 `d` and `md` planes, so that the caller can
+    queue dependent device work before paying the device->host copy."""
     device = resolve(device)
     d_out, md_out = [], []
     with devstats.span("analyze_inter"):
@@ -292,8 +302,13 @@ def analyze_inter(state, info, padded_planes, mc_planes, lossless, device):
                 mc_fpr_mode=mc_fpr_mode, pic_w=pic_w, pic_h=pic_h)
             d_out.append(d)
             md_out.append(md)
-        return ([devstats.fetch(d) for d in d_out],
-                [devstats.fetch(md) for md in md_out])
+
+    def finish():
+        with devstats.span("analyze_inter"):
+            devstats.prefetch(*(d_out + md_out))
+            return ([devstats.fetch(d) for d in d_out],
+                    [devstats.fetch(md) for md in md_out])
+    return d_out, md_out, finish
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,13 @@ crosses to or from a CUDA device; a CPU run counts dispatches and no
 bytes.
 
 The analysis entry points (`analyze_*`) each run in a span of their
-name.  They end by fetching their planes to the host, which waits for
-the device, so a span's wall covers the device work it launched.
+name, and so does the finish() they return, which fetches their planes
+to the host and so waits for the device: the span's wall covers the
+device work they launched.
+
+The PVQ band search (models/pvqsearch.py) adds the rows it searched
+and the rows it marked invalid (searched on the host) under COUNTS;
+`prefetch` starts device->host copies early, and their bytes count once.
 
 Counters are process-global and cheap (two clock reads per span);
 `reset()` + `snapshot()` bracket a measured region (chip_smoke.py and
@@ -25,18 +30,23 @@ import time
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 _ZERO = dict(dispatches=0, h2d_bytes=0, d2h_bytes=0, fetch_wall_s=0.0)
 STATS = dict(_ZERO)
 LAUNCHES: dict = {}  # kernel name -> launches since reset()
 BUILDS: dict = {}  # kernel name -> nvcc seconds (kept across reset())
 SPANS: dict = {}  # span name -> host wall seconds since reset()
+COUNTS: dict = {}  # counter name -> total since reset()
+# device tensor -> (pinned host copy, event recorded after the copy)
+_PREFETCHED = WeakIdKeyDictionary()
 
 
 def reset():
     STATS.update(_ZERO)
     LAUNCHES.clear()
     SPANS.clear()
+    COUNTS.clear()
 
 
 def snapshot():
@@ -44,7 +54,13 @@ def snapshot():
     s["launches"] = dict(LAUNCHES)
     s["builds_s"] = dict(BUILDS)
     s["spans_s"] = dict(SPANS)
+    s["counts"] = dict(COUNTS)
     return s
+
+
+def count(name, value):
+    """Add value to COUNTS[name]."""
+    COUNTS[name] = COUNTS.get(name, 0) + value
 
 
 @contextlib.contextmanager
@@ -82,12 +98,36 @@ def dispatch():
     STATS["dispatches"] += 1
 
 
+def prefetch(*tensors):
+    """Start non-blocking device->host copies of the CUDA tensors among
+    `tensors` into pinned memory, counting their bytes now; a later
+    fetch() of the same tensor waits for its copy and counts nothing
+    more."""
+    for t in tensors:
+        if t.device.type == "cpu" or t in _PREFETCHED:
+            continue
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t.detach(), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
+        STATS["d2h_bytes"] += host.numel() * host.element_size()
+        _PREFETCHED[t] = (host, done)
+
+
 def fetch(t, dtype=torch.int32):
     """The numpy copy of tensor t, as `dtype` (None keeps t's), counting
-    device->host bytes and the wall time spent waiting for them."""
+    device->host bytes (unless prefetch() counted them) and the wall
+    time spent waiting for them."""
     t0 = time.perf_counter()
-    a = t.detach().to("cpu", dtype or t.dtype).numpy()
+    hit = _PREFETCHED.pop(t, None) if t.device.type != "cpu" else None
+    if hit is not None:
+        host, done = hit
+        done.synchronize()
+        a = host.to(dtype or t.dtype).numpy()
+    else:
+        a = t.detach().to("cpu", dtype or t.dtype).numpy()
+        if t.device.type != "cpu":
+            STATS["d2h_bytes"] += a.nbytes
     if t.device.type != "cpu":
-        STATS["d2h_bytes"] += a.nbytes
         STATS["fetch_wall_s"] += time.perf_counter() - t0
     return a

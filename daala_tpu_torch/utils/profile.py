@@ -3,23 +3,29 @@
 Usage, from the repository root on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and g++:
 
-    python -m daala_tpu_torch.utils.profile [--out DIR] [--sweep]
+    python -m daala_tpu_torch.utils.profile [--out DIR] [--sweep] [--lean]
 
 It encodes bench.py's 1920x1080 translation clip (4 frames, quant 25,
 complexity 7, the production trial-pass preset, encoder check on)
-through daala_tpu_torch's Encoder on the card (with --sweep, in
-mv_refine_mode="sweep"), and prints:
+through daala_tpu_torch's Encoder on the card: in the analysis tier by
+default, with --lean in bench.py's `device` configuration (the lean
+tier: use_device_analysis=False, use_device_pvq=True), with --sweep in
+mv_refine_mode="sweep" (either tier).  It prints:
 
 1. the card's name and power limit (nvidia-smi);
 2. per frame, after one warm-up encode of the clip, REPS times: the
    host wall of `encode_frame` and the devstats counters of that frame
-   (the `analyze_*` and `refine_sweep` spans, fetch wall, host<->device
-   bytes, kernel launches);
+   (the `analyze_*`, `search_frame`, `fullpel_sad_fields` and
+   `refine_sweep` spans, fetch wall, host<->device bytes, kernel
+   launches, the PVQ rows searched and marked invalid);
 3. a torch.profiler trace of a fresh encoder's keyframe and first inter
    frame, written as Chrome traces into `--out` and read back: the
    frame's wall, the device's busy time (the union of its kernel and
    copy intervals) and its share of the wall, split into copies, the
-   hand-written kernels (csrc/) and other kernels, with counts;
+   hand-written kernels (csrc/) and other kernels, with counts; and per
+   call of `band_search` and of the SAD fields (their
+   record_function ranges), the launches made in it, the device time
+   of the work they launched and the call's host wall;
 4. as the last line, one JSON object with all of the above.
 """
 
@@ -104,28 +110,60 @@ def device_summary(events, wall_s):
     return out
 
 
-def _encoder(device, sweep):
+# The runtime calls that put work on the device.
+_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
+             "cudaMemsetAsync")
+
+
+def span_device_work(events, name):
+    """Per range `name` of a Chrome trace (a torch.profiler
+    record_function, category user_annotation), in order: the launches
+    made inside it (kernel launches, async copies and memsets), the
+    device time of the work they launched (by correlation id) and the
+    range's host wall, in ms."""
+    dev_us = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            c = e.get("args", {}).get("correlation")
+            dev_us[c] = dev_us.get(c, 0.0) + e["dur"]
+    launches = [(e["ts"], e.get("args", {}).get("correlation"))
+                for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name", "").startswith(_LAUNCHES)]
+    out = []
+    for e in sorted((e for e in events if e.get("cat") == "user_annotation"
+                     and e.get("name") == name), key=lambda e: e["ts"]):
+        t0, t1 = e["ts"], e["ts"] + e["dur"]
+        inside = [c for ts, c in launches if t0 <= ts <= t1]
+        out.append({"launches": len(inside),
+                    "device_ms": sum(dev_us.get(c, 0.0)
+                                     for c in inside) / 1e3,
+                    "wall_ms": e["dur"] / 1e3})
+    return out
+
+
+def _encoder(device, sweep, lean=False):
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.encoder import Encoder
     enc = Encoder(headers.Info(pic_width=W, pic_height=H), device=device,
                   mv_refine_mode="sweep" if sweep else "greedy",
+                  use_device_analysis=not lean, use_device_pvq=lean,
                   **ENCODER_KW)
     enc.keyframe_rate = 256
     enc.enable_encoder_check = True
     return enc
 
 
-def per_frame(frames, device, sweep):
+def per_frame(frames, device, sweep, lean=False):
     """Host wall and devstats counters of every frame, REPS encodes of
     the clip after a warm-up encode."""
     from daala_tpu_torch.utils import devstats
-    warm = _encoder(device, sweep)
+    warm = _encoder(device, sweep, lean)
     for fr in frames:
         warm.encode_frame(fr)
     warm.flush()
     rows = []
     for rep in range(REPS):
-        enc = _encoder(device, sweep)
+        enc = _encoder(device, sweep, lean)
         for i, fr in enumerate(frames):
             devstats.reset()
             t0 = time.perf_counter()
@@ -140,21 +178,23 @@ def per_frame(frames, device, sweep):
             row["front_end_share"] = row["front_end_s"] / wall
             rows.append(row)
             print("rep %d frame %d wall %.4f s; front end %.4f s (%.2f%%); "
-                  "spans %s; fetch %.4f s; d2h %d h2d %d; launches %s"
+                  "spans %s; fetch %.4f s; d2h %d h2d %d; launches %s; "
+                  "counts %s"
                   % (rep, i, wall, row["front_end_s"],
                      100 * row["front_end_share"],
                      {k: round(v, 4) for k, v in snap["spans_s"].items()},
                      snap["fetch_wall_s"], snap["d2h_bytes"],
-                     snap["h2d_bytes"], snap["launches"]))
+                     snap["h2d_bytes"], snap["launches"], snap["counts"]))
         enc.flush()
     return rows
 
 
-def traced(frames, device, out_dir, sweep):
+def traced(frames, device, out_dir, sweep, lean=False):
     """torch.profiler traces of a fresh encoder's keyframe and first
-    inter frame; returns their device summaries."""
+    inter frame; returns their device summaries, with the device work of
+    each band_search and SAD-field call."""
     from torch.profiler import ProfilerActivity, profile
-    enc = _encoder(device, sweep)
+    enc = _encoder(device, sweep, lean)
     res = {}
     for label, fr in (("keyframe", frames[0]), ("inter", frames[1])):
         with profile(activities=[ProfilerActivity.CPU,
@@ -163,13 +203,16 @@ def traced(frames, device, out_dir, sweep):
             enc.encode_frame(fr)
             torch.cuda.synchronize(device)
             wall = time.perf_counter() - t0
-        path = os.path.join(out_dir, "trace_%s.json" % label)
+        path = os.path.join(out_dir, "trace_%s%s.json"
+                            % (label, "_lean" if lean else ""))
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
         events = (trace["traceEvents"] if isinstance(trace, dict)
                   else trace)
         res[label] = s = device_summary(events, wall)
+        for name in ("band_search", "fullpel_sad_fields"):
+            s[name] = span_device_work(events, name)
         print("trace %s: wall %.4f s, device busy %.3f ms (%.3f%%); copies "
               "%.3f ms (%d), hand kernels %.3f ms (%d), other kernels "
               "%.3f ms (%d); %s"
@@ -178,6 +221,11 @@ def traced(frames, device, out_dir, sweep):
                  s["copies_count"], s["hand_kernels_ms"],
                  s["hand_kernels_count"], s["other_kernels_ms"],
                  s["other_kernels_count"], path))
+        for name in ("band_search", "fullpel_sad_fields"):
+            for k, c in enumerate(s[name]):
+                print("trace %s: %s call %d: %d launches, device %.3f ms, "
+                      "host wall %.3f ms" % (label, name, k, c["launches"],
+                                             c["device_ms"], c["wall_ms"]))
     enc.flush()
     return res
 
@@ -188,6 +236,10 @@ def main(argv=None):
                     help="directory for the Chrome traces")
     ap.add_argument("--sweep", action="store_true",
                     help='encode with mv_refine_mode="sweep"')
+    ap.add_argument("--lean", action="store_true",
+                    help="encode in the lean tier (use_device_analysis="
+                    "False, use_device_pvq=True: bench.py's device "
+                    "configuration)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: torch sees no CUDA device", file=sys.stderr)
@@ -201,10 +253,10 @@ def main(argv=None):
     print(card)
     os.makedirs(args.out, exist_ok=True)
     frames = translation_clip()
-    rows = per_frame(frames, device, args.sweep)
-    traces = traced(frames, device, args.out, args.sweep)
-    print(json.dumps({"card": card, "sweep": args.sweep, "frames": rows,
-                      "traces": traces}, sort_keys=True))
+    rows = per_frame(frames, device, args.sweep, args.lean)
+    traces = traced(frames, device, args.out, args.sweep, args.lean)
+    print(json.dumps({"card": card, "sweep": args.sweep, "lean": args.lean,
+                      "frames": rows, "traces": traces}, sort_keys=True))
     return 0
 
 

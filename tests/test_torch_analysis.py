@@ -197,8 +197,8 @@ def test_analyze_counts_its_work():
     planes = _planes(info, state, 14)
     mc = _planes(info, state, 15)
     devstats.reset()
-    TKF.analyze_keyframe(state, info, planes, False, "cpu")
-    TKF.analyze_inter(state, info, planes, mc, False, "cpu")
+    TKF.analyze_keyframe(state, info, planes, False, "cpu")[-1]()
+    TKF.analyze_inter(state, info, planes, mc, False, "cpu")[-1]()
     TKF.analyze_rdo_pyramid(state, info, planes, [mc[0]], False, "cpu")
     snap = devstats.snapshot()
     assert set(snap["spans_s"]) == {"analyze_keyframe", "analyze_inter",

@@ -45,11 +45,13 @@ COPIES = {
         "Decoder._decode_coefficients", "Decoder._decode_dering"),
     "codec/dist.py": (),
     "codec/encoder.py": (
-        # device and mv_refine_mode, the port's analysis and sweep
+        # device, use_device_analysis, use_device_pvq and
+        # mv_refine_mode: the port's analysis, PVQ search, SAD fields
+        # and sweep
         "Encoder.__init__", "Encoder.mv_refine_mode",
         "Encoder.mv_refine_mode#2", "Encoder._encode_one",
         "Encoder._encode_coefficients",
-        # device dering and the device PVQ table (JAX tiers)
+        # device dering (a JAX tier the port does not have)
         "Encoder._encode_coefficients_native",
         # the Python coefficient path, which ignores the device analysis
         "Encoder._quantize_haar_dc_sb", "Encoder._quantize_haar_dc_level",
@@ -110,6 +112,8 @@ def test_device_layer_imports_no_daala_tpu_and_no_jax():
     mods = _port_modules() + ["chip_smoke"]
     for name in ("daala_tpu_torch.ops.cuda.obmc_kernels",
                  "daala_tpu_torch.codec.encoder",
+                 "daala_tpu_torch.models.pvqsearch",
+                 "daala_tpu_torch.models.mefield",
                  "daala_tpu_torch.native", "daala_tpu_torch.utils.profile"):
         assert name in mods
     code = ("import importlib, sys\n"

@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: the kernels against their
 plain versions at the encoder's 1080p shapes, launch-error reporting,
-the device OBMC predictor against the host's, and the encoder on the
-card against the host encoder and (in sweep mode) against itself on the
-CPU.
+the device OBMC predictor against the host's, the encoder on the card
+against the host encoder and (in sweep mode) against itself on the
+CPU, and the lean tier's PVQ band search and SAD fields on the card
+against the CPU.
 
 Every test here is marked `cuda` and skips without a card.  This file
 imports no jax, so it also runs on a card's host that has none:
@@ -22,7 +23,9 @@ from daala_tpu.codec import headers
 from daala_tpu.codec import mc as MC
 from daala_tpu.codec.encoder import Encoder as HostEncoder
 from daala_tpu_torch.codec.encoder import Encoder
+from daala_tpu_torch.entropy.adapt import AdaptCtx
 from daala_tpu_torch.models import obmc as OB
+from daala_tpu_torch.models import pvqsearch as PS
 from daala_tpu_torch.ops.cuda import (_build, dct_kernels, lap_kernels,
                                       obmc_kernels as OK)
 from daala_tpu_torch.utils import devstats
@@ -402,3 +405,99 @@ def test_sweep_encode_on_card_matches_cpu(card):
         if dev is card:
             assert devstats.snapshot()["launches"].get(OK.CELLS, 0) > 0
     assert pk[str(card)] == pk["cpu"]
+
+
+# The lean tier: the PVQ band search and the SAD fields on the card.
+
+def _shift_cases():
+    rng = np.random.default_rng(17)
+    x = np.concatenate([
+        np.array([0, 1, -1, 32767, -32768, (1 << 31) - 1, -(1 << 31),
+                  1 << 32, (1 << 40) + 3, -(1 << 40)], np.int64),
+        rng.integers(-(1 << 41), 1 << 41, 4000)])
+    s = rng.integers(-70, 71, len(x)).astype(np.int64)
+    return torch.from_numpy(x), torch.from_numpy(s)
+
+
+def test_pvq_helpers_on_card_match_cpu(card):
+    """Shifts by 64 or more and by negative amounts, the uint32
+    truncation of _ilog and the helpers built on them: the card's int64
+    semantics equal the CPU's (and so XLA's, tests/test_torch_pvqsearch.py)."""
+    x, s = _shift_cases()
+    for name, args in (("_ilog", (x.abs(),)), ("_ilog_c", (x,)),
+                       ("_shl32", (x, s)), ("_vshr", (x, s)),
+                       ("_vshr_round", (x, s)), ("_od_rcp", (x,)),
+                       ("_od_exp2", (x,)), ("_od_sqrt", (x.abs(),)),
+                       ("_pvq_cos", (x,))):
+        fn = getattr(PS, name)
+        want = fn(*args)
+        got = fn(*[a.to(card) for a in args])
+        for w, g in zip(want if isinstance(want, tuple) else (want,),
+                        got if isinstance(got, tuple) else (got,)):
+            assert torch.equal(g.cpu(), w), name
+    r = torch.from_numpy(np.random.default_rng(3).integers(
+        -40000, 40000, (125, 32))).long()
+    xr = x[:4000].view(125, 32) >> 24
+    assert torch.equal(PS._apply_householder(xr.to(card), r.to(card)).cpu(),
+                       PS._apply_householder(xr, r))
+    torch.cuda.synchronize()
+
+
+def _search_rows(dev, n, m, is_keyframe, seed):
+    rng = np.random.default_rng(seed)
+    mag = rng.choice([40, 120, 700, 3000], (m, 1))
+    X = rng.normal(0, 1, (m, n)) * mag
+    R = X * rng.uniform(-0.2, 1.2, (m, 1)) + rng.normal(0, 1, (m, n)) * mag / 3
+    R[: m // 10] = 0
+    X[m // 10: m // 5] = 0
+    if is_keyframe:
+        R[:] = 0
+    adapt = AdaptCtx()
+    adapt.reset(is_keyframe)
+    cw = adapt.pvq.pvq_codeword_ctx
+    t = lambda a, dt=torch.int32: torch.from_numpy(np.asarray(a)).to(dev, dt)
+    return dict(
+        dflat=t(X.astype(np.int32).ravel()),
+        mdflat=t(R.astype(np.int32).ravel()),
+        base=torch.arange(m, dtype=torch.int32, device=dev) * n,
+        tabsel=torch.zeros(m, dtype=torch.int32, device=dev),
+        tab=torch.arange(n, dtype=torch.int32, device=dev)[None],
+        qmtab=torch.full((1, n), 16, dtype=torch.int32, device=dev),
+        q0=t(rng.integers(20, 400, m)),
+        beta15=t(rng.integers(0, 2, m), torch.bool),
+        lam=0.147, n=n, iters=n + 64,
+        k1_cdf=t(cw.pvq_k1_cdf), split_cdf=t(cw.pvq_split_cdf),
+        is_keyframe=is_keyframe)
+
+
+@pytest.mark.parametrize("is_keyframe", [False, True])
+@pytest.mark.parametrize("n,m", [(8, 20000), (15, 30000), (32, 8000),
+                                 (128, 2000), (512, 300)])
+def test_band_search_on_card_matches_cpu(card, n, m, is_keyframe):
+    """The same rows on the card and on the CPU: the integer outputs and
+    y equal on at least 99% of rows (the float32 RDO may flip near-ties
+    between the devices), and every output tensor on the card."""
+    args = _search_rows(card, n, m, is_keyframe, n + m)
+    got = PS.band_search(**args)
+    assert all(o.device.type == "cuda" for o in got)
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in args.items()}
+    want = PS.band_search(**cpu)
+    same = (got[0].cpu() == want[0]).all(1) & (got[1].cpu() == want[1]).all(1)
+    assert int(same.sum()) >= 0.99 * m, (int(same.sum()), m)
+    torch.cuda.synchronize()
+
+
+def test_sad_fields_on_card_match_cpu(card):
+    """models/mefield.py on a 640x368 frame pair (odd visible size) and
+    two references: the card's fields equal the CPU's."""
+    from daala_tpu_torch.models import mefield as MF
+    rng = np.random.default_rng(11)
+    w, h, pad = 640, 368, MC.OD_BUFFER_PADDING
+    cur = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    refs = [rng.integers(0, 256, (h + 2 * pad, w + 2 * pad), dtype=np.uint8)
+            for _ in range(2)]
+    args = (cur, refs, pad, (357, 633), h // 8, w // 8)
+    got = MF.fullpel_sad_fields(*args, device=card)
+    want = MF.fullpel_sad_fields(*args, device="cpu")
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g, wnt)

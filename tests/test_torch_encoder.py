@@ -135,6 +135,15 @@ def _perturbed(fn, edit):
     return wrapped
 
 
+def _perturbed_fetch(fn, edit):
+    """fn (an analyze_* entry point) with the planes its finish()
+    fetches edited."""
+    def wrapped(*args, **kwargs):
+        *dev, finish = fn(*args, **kwargs)
+        return (*dev, lambda: edit(finish()))
+    return wrapped
+
+
 def test_analysis_planes_are_consumed(monkeypatch):
     """A perturbed coefficient in the port's keyframe and inter planes
     changes the packets, so the native pass really used them.  The
@@ -158,12 +167,12 @@ def test_analysis_planes_are_consumed(monkeypatch):
 
     base = run()
     monkeypatch.setattr(TKF, "analyze_keyframe",
-                        _perturbed(TKF.analyze_keyframe, bump_kf))
+                        _perturbed_fetch(TKF.analyze_keyframe, bump_kf))
     kf = run()
     assert kf[0] != base[0]
     monkeypatch.undo()
     monkeypatch.setattr(TKF, "analyze_inter",
-                        _perturbed(TKF.analyze_inter, bump_inter))
+                        _perturbed_fetch(TKF.analyze_inter, bump_inter))
     inter = run()
     assert inter[0] == base[0] and inter[1:] != base[1:]
 
@@ -199,6 +208,31 @@ def test_refuses_the_python_frame_path():
     enc.use_native_frame = False
     with pytest.raises(RuntimeError):
         enc.encode_frame(_clip(64, 64, 1)[0])
+
+
+def test_refuses_no_device_tier():
+    """With neither tier on the whole frame would run on the host, so the
+    port's encoder refuses it."""
+    info = headers.Info(pic_width=64, pic_height=64)
+    with pytest.raises(ValueError):
+        Encoder(info, device="cpu", use_device_analysis=False,
+                use_device_pvq=False)
+
+
+def test_both_tiers_match_the_lean_tier():
+    """Both tiers on: the native pass reads the fetched planes (the
+    same transforms it computes itself) and replays the same search
+    table, so the packets equal the lean tier's; encoder check on."""
+    w, h = 96, 64
+    frames = _clip(w, h, 3, seed=9)
+    pk = []
+    for analysis in (False, True):
+        enc = Encoder(headers.Info(pic_width=w, pic_height=h), device="cpu",
+                      quant=18, complexity=7, use_device_analysis=analysis,
+                      use_device_pvq=True)
+        enc.enable_encoder_check = True
+        pk.append(_encode(enc, frames))
+    assert pk[1] == pk[0]
 
 
 def test_cuda_device_without_card_raises():

@@ -5,7 +5,8 @@ import numpy as np
 import pytest
 
 from daala_tpu_torch.utils import devstats
-from daala_tpu_torch.utils.profile import device_summary, translation_clip
+from daala_tpu_torch.utils.profile import (device_summary, span_device_work,
+                                           translation_clip)
 
 
 def test_device_summary_classes_and_union():
@@ -77,3 +78,38 @@ def test_hand_kernels_name_every_kernel():
     listed = (dct_kernels.KERNELS + lap_kernels.KERNELS
               + obmc_kernels.KERNELS)
     assert set(listed) == names
+
+
+def test_span_device_work_reads_ranges_by_correlation():
+    """Per record_function range: the launches made inside it and the
+    device time of the work they launched (matched by correlation id),
+    whenever that work ran; launches outside the range do not count."""
+    ev = [
+        {"cat": "user_annotation", "name": "band_search", "ts": 100.0,
+         "dur": 50.0},
+        {"cat": "user_annotation", "name": "band_search", "ts": 300.0,
+         "dur": 10.0},
+        {"cat": "user_annotation", "name": "other", "ts": 0.0, "dur": 1e4},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 110.0,
+         "dur": 2.0, "args": {"correlation": 1}},
+        {"cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 120.0,
+         "dur": 2.0, "args": {"correlation": 2}},
+        {"cat": "cuda_runtime", "name": "cudaStreamSynchronize", "ts": 130.0,
+         "dur": 2.0, "args": {"correlation": 3}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 200.0,
+         "dur": 2.0, "args": {"correlation": 4}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 305.0,
+         "dur": 2.0, "args": {"correlation": 5}},
+        {"cat": "kernel", "name": "k1", "ts": 500.0, "dur": 7.0,
+         "args": {"correlation": 1}},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 510.0, "dur": 3.0,
+         "args": {"correlation": 2}},
+        {"cat": "kernel", "name": "k4", "ts": 520.0, "dur": 100.0,
+         "args": {"correlation": 4}},
+        {"cat": "kernel", "name": "k5", "ts": 700.0, "dur": 1.5,
+         "args": {"correlation": 5}},
+    ]
+    got = span_device_work(ev, "band_search")
+    assert got == [{"launches": 2, "device_ms": 0.01, "wall_ms": 0.05},
+                   {"launches": 1, "device_ms": 0.0015, "wall_ms": 0.01}]
+    assert span_device_work(ev, "absent") == []
