@@ -57,9 +57,12 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    encoded with daala_tpu_torch's Encoder on "cuda" (encoder check on:
    every packet is decoded and its reconstruction compared) and on
    "cpu", where the kernels' plain versions run (the CPU tests hold that
-   run's packets to daala_tpu's host encoder).  The packets must be
-   byte-identical, and both analysis kernels must have launched in the
-   card's run (launch counts are reset just before it).
+   run's packets to daala_tpu's host encoder).  The dering RDO's
+   candidates (models/restore.py dering_candidates_device) are filtered
+   on the device tier in both runs.  The packets must be byte-identical,
+   and both analysis kernels must have launched in the card's run
+   (launch counts are reset just before it); prints the
+   dering_candidates span of both runs.
 3c. The lean tier (bench.py's `device` configuration:
    use_device_analysis=False, use_device_pvq=True) on phase 3's clip
    and preset on "cuda", encoder check on: decoded by the port's
@@ -76,6 +79,12 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    of every band_search call.
 3d. The full-pel SAD fields (models/mefield.py) of one 1080p frame pair
    on the card and on the CPU: equal.
+3e. The dering candidates of one 1080p frame (its luma lifted to the
+   coefficient domain, 17 x 30 superblocks x 5 gains) at quant 25's
+   quantizer, with a random skip map holding all-skip superblocks (a
+   corner one and an interior one) and the edge superblocks, on the
+   card and on the CPU: equal candidates and directions.  Prints the
+   card's call wall (with its upload and fetch).
 4. The colour-sweep encode (mv_refine_mode="sweep", encoder check on):
    (a) a textured 640x368 clip whose mesh subdivides, 4 frames, quant
    25, complexity 7, through the port's Encoder on "cuda" and on "cpu":
@@ -88,11 +97,22 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    CPU searches the same planes too: the two decision tables must agree
    on at least 99% of rows in every frame (the float32 RDO may flip
    near-ties between the devices; the rows that differ are printed).
+6. The decoder: phase 3's card packets decoded by the port's Decoder
+   with its device back end on the card (Decoder(info, device=...,
+   use_device_synthesis=True): the native parse, then
+   models/synthesis.py and the batched dering of models/restore.py),
+   by its host Decoder, and with the device back end on the CPU.  All
+   three give equal planes in every frame; lap_frame and dct_frame must
+   have launched in the card's decode (counts reset just before it).
+   Prints the decode wall per frame on the card and on the host, the
+   synthesize_frame and dering_frame spans, the launches and the
+   host<->device bytes.
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
-   obmc_leaf_cells from phase 4b), error, times and bound; then, as the
-   last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
-   "count": ...}}.
+   obmc_leaf_cells from phase 4b) and, beside them, its launches in
+   phase 6's decode ("decode_launches"), error, times and bound; then,
+   as the last line, {"ok": true, "device": {"platform": "gpu",
+   "kind": ..., "count": ...}}.
 
 Without a CUDA device, or without the repository beside it, it exits
 nonzero and prints no result.  tests/ imports its case generators
@@ -887,9 +907,11 @@ def phase_encoder(torch, dev):
     card_pk, card_s = encode(card, frames)
     torch.cuda.synchronize()
     snap = devstats.snapshot()
+    devstats.reset()
     cpu_pk, cpu_s = encode(
         Encoder(headers.Info(pic_width=W, pic_height=H), device="cpu", **kw),
         frames)
+    cpu_spans = devstats.snapshot()["spans_s"]
     mpix = NFRAMES * W * H / 1e6
     print("encode: %d packets, %d bytes; %s %.3f Mpix/s (%.2f s), "
           "cpu %.3f Mpix/s (%.2f s) [information only]"
@@ -903,6 +925,11 @@ def phase_encoder(torch, dev):
                              % (len(card_pk), len(cpu_pk), bad[:3]))
     print("encode: packets byte-identical between %s and cpu, encoder "
           "check passed" % dev)
+    if "dering_candidates" not in snap["spans_s"]:
+        raise AssertionError("the dering candidates did not run on %s" % dev)
+    print("encode: dering_candidates span %s %.4f s, cpu %.4f s (%d frames)"
+          % (dev, snap["spans_s"]["dering_candidates"],
+             cpu_spans["dering_candidates"], NFRAMES))
     for name in ("lap_frame", "dct_frame"):
         if snap["launches"].get(name, 0) <= 0:
             raise AssertionError("%s never launched on the main path" % name)
@@ -1043,6 +1070,42 @@ def phase_fields(torch, dev):
           % (out["cpu"].shape, dev, out[str(dev) + "_s"], out["cpu_s"]))
 
 
+def phase_dering_candidates(torch, dev):
+    """Phase 3e: one 1080p frame's dering candidates, card and CPU."""
+    from daala_tpu_torch.codec import quantizer as Q
+    from daala_tpu_torch.models import restore as R
+    from daala_tpu_torch.utils.profile import H, W, translation_clip
+    rng = np.random.default_rng(SEED)
+    y = translation_clip(nframes=1)[0][0]
+    nvdr, nhdr = (H + 63) // 64, W // 64
+    luma = np.pad((y.astype(np.int16) - 128) << 4,
+                  ((0, nvdr * 64 - H), (0, 0)), mode="edge")
+    bskip = (rng.random((nvdr * 16, nhdr * 16)) < 0.5).astype(np.uint8)
+    bskip[:17, :17] = 1  # the corner superblock and its window
+    bskip[79:97, 159:177] = 1  # superblock (5, 10) and its window
+    q = Q.quality_to_quantizer((25 << 4) - 8)
+    args = (luma, bskip, q, nvdr, nhdr)
+    R.dering_candidates_device(*args, device=dev)  # warm-up
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cands, dirs = R.dering_candidates_device(*args, device=dev)
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want_c, want_d = R.dering_candidates_device(*args, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not (np.array_equal(cands, want_c) and np.array_equal(dirs, want_d)):
+        raise AssertionError("dering candidates differ between %s and cpu"
+                             % dev)
+    for sb, (y0, x0) in ((0, (0, 0)), (5 * nhdr + 10, (320, 640))):
+        if not (cands[sb] == luma[y0:y0 + 64, x0:x0 + 64]).all():
+            raise AssertionError("all-skip superblock %d was filtered" % sb)
+    print("dering candidates: 1920x1080 luma, quantizer %d, %s candidates "
+          "equal between %s and cpu; %s call wall %.4f s (median of 3, with "
+          "the upload and fetch), cpu %.4f s"
+          % (q, cands.shape, dev, dev, statistics.median(walls), cpu_s))
+
+
 def phase_sweep(torch, dev):
     """The colour-sweep encode: (a) card against CPU on a clip whose mesh
     subdivides, (b) the 1080p clip on the card; returns (b)'s launch
@@ -1083,6 +1146,58 @@ def phase_sweep(torch, dev):
     print("devstats: " + json.dumps(snap, sort_keys=True))
     if snap["launches"].get("obmc_leaf_cells", 0) <= 0:
         raise AssertionError("obmc_leaf_cells never launched (b)")
+    return snap["launches"]
+
+
+def phase_decoder(torch, dev, ref):
+    """Phase 6 on phase 3's card packets; returns the card decode's launch
+    counts."""
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.codec.decoder import Decoder
+    from daala_tpu_torch.utils import devstats
+    from daala_tpu_torch.utils.profile import H, W
+    info = headers.Info(pic_width=W, pic_height=H)
+
+    def decode(dec):
+        outs, walls = [], []
+        for p in ref["packets"]:
+            t0 = time.perf_counter()
+            outs.extend(dec.decode_packet(p))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return outs, walls
+
+    devstats.reset()
+    card, card_w = decode(Decoder(info, device=dev,
+                                  use_device_synthesis=True))
+    snap = devstats.snapshot()
+    host, host_w = decode(Decoder(info))
+    cpu, cpu_w = decode(Decoder(info, device="cpu",
+                                use_device_synthesis=True))
+    if not len(card) == len(host) == len(cpu) == len(ref["packets"]):
+        raise AssertionError("decoded %d / %d / %d frames of %d" % (
+            len(card), len(host), len(cpu), len(ref["packets"])))
+    for i, (a, b, c) in enumerate(zip(card, host, cpu)):
+        for pli in range(3):
+            if not (np.array_equal(a[pli], b[pli])
+                    and np.array_equal(c[pli], b[pli])):
+                raise AssertionError("decoded frame %d plane %d differs "
+                                     "between %s, host and cpu" % (i, pli,
+                                                                    dev))
+    print("decode: %d frames, planes equal between the %s back end, the "
+          "host decoder and the cpu back end" % (len(card), dev))
+    print("decode: wall per frame %s %s s, host %s s, cpu back end %s s"
+          % (dev, ["%.4f" % v for v in card_w], ["%.4f" % v for v in host_w],
+             ["%.4f" % v for v in cpu_w]))
+    print("decode: %s spans %s; launches %s; h2d %d bytes, d2h %d bytes; "
+          "dispatches %d" % (dev, {k: round(v, 4) for k, v in
+                                   snap["spans_s"].items()},
+                             snap["launches"], snap["h2d_bytes"],
+                             snap["d2h_bytes"], snap["dispatches"]))
+    print("devstats: " + json.dumps(snap, sort_keys=True))
+    for name in ("lap_frame", "dct_frame"):
+        if snap["launches"].get(name, 0) <= 0:
+            raise AssertionError("%s never launched in the decode" % name)
     return snap["launches"]
 
 
@@ -1158,9 +1273,10 @@ def phase_lean_small(torch, dev):
                                  % (same, total))
 
 
-def kernel_line(kern, launches):
-    """The kernels line: each kernel's numbers summed over phase 2's and
-    2b's timed variants (each shape, size, direction or bit depth once):
+def kernel_line(kern, launches, decode_launches):
+    """The kernels line: each kernel's launches on the encoder's path and
+    in the decode, and its numbers summed over phase 2's and 2b's timed
+    variants (each shape, size, direction or bit depth once):
     per-call medians through the wrapper ("ms"), the kernels' device time
     per call in the trace ("device_ms"), the plain version's, and the
     bounds; "bound_by" names what bounds the larger part of bound_ms.
@@ -1181,7 +1297,9 @@ def kernel_line(kern, launches):
         rows.append({
             "name": name, "route": "cuda",
             "source": "daala_tpu_torch/csrc/" + src, "replaces": rep,
-            "launches": launches.get(name), "max_abs_err": k["max_abs_err"],
+            "launches": launches.get(name),
+            "decode_launches": decode_launches.get(name, 0),
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": max(k["bound_by"], key=k["bound_by"].get),
@@ -1221,13 +1339,15 @@ def main(argv=None):
                      if k in ("lap_frame", "dct_frame")})
     phase_lean(torch, dev, ref)
     phase_fields(torch, dev)
+    phase_dering_candidates(torch, dev)
     launches["obmc_leaf_cells"] = phase_sweep(torch, dev)["obmc_leaf_cells"]
     phase_lean_small(torch, dev)
+    decode_launches = phase_decoder(torch, dev, ref)
     leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:
         raise AssertionError("imported: %s" % leaked)
-    print(json.dumps(kernel_line(kern, launches)))
+    print(json.dumps(kernel_line(kern, launches, decode_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,13 +6,22 @@ decode is host-side and sequential (it must be); the reconstruction math
 (inverse transforms, filters) runs on whole-frame tensors.
 
 The port's copy of daala_tpu/codec/decoder.py;
-tests/test_torch_copies.py holds it to the original.  The original's JAX
-device synthesis back end (`use_device_synthesis`: models/synthesis.py
-and models/restore.py) is left out until the port has one.
+tests/test_torch_copies.py holds it to the original.  Where the original
+has its JAX device back end, the copy has the port's:
+`Decoder(info, device=..., use_device_synthesis=True)` parses each frame
+in the native engine's parse-only mode, reconstructs it on `device`
+(models/synthesis.py synthesize_frame: masked inverse DCTs, split and
+frame postfilters through the port's kernels) and applies the parsed
+dering levels there (models/restore.py), bit-exact with the host
+decoder.  The native path derings every superblock of a plane in one
+batched call (`_apply_dering_device`); the Python path
+(DAALA_TPU_NATIVE_FRAME=0) filters one superblock at a time as the
+original does.  Haar-wavelet (lossless) frames decode on the host.
 """
 
 from __future__ import annotations
 
+import functools
 import os as _os
 
 import numpy as np
@@ -28,6 +37,7 @@ from daala_tpu_torch.ops import partition as part
 from daala_tpu_torch.ops import pvq as P
 from daala_tpu_torch.ops.haar import haar_kernel
 from daala_tpu_torch.codec import mc as MC
+from daala_tpu_torch.device import resolve
 
 OD_NBSIZES = 5
 OD_MAX_REORDER = 16
@@ -59,8 +69,19 @@ def _set_loc(dec, x, y, layer, level):
 
 
 class Decoder:
-    def __init__(self, info: headers.Info):
+    def __init__(self, info: headers.Info, *, device=None,
+                 use_device_synthesis=False):
         self.info = info
+        # The device back end: reconstruction and dering on `device`
+        # (required with the switch, and only with it).
+        self.use_device_synthesis = bool(use_device_synthesis)
+        if self.use_device_synthesis:
+            self.device = resolve(device)
+        elif device is not None:
+            raise ValueError("Decoder: a device without "
+                             "use_device_synthesis=True would go unused")
+        else:
+            self.device = None
         self.state = CodecState(info)
         self.frames = []
         # Reference image ring (reference: src/state.h:216-219).
@@ -267,12 +288,68 @@ class Decoder:
         if info.full_precision_references:
             # 12-bit uint16 reference buffers (frame_dec.inc mc_fpr).
             cfg[56] = info.bitdepth_mode
+        # Device synthesis back-end: native parse-only mode (emit_d)
+        # fills the d planes and dering levels; the device reconstructs
+        # (models/synthesis.py masked IDCT + postfilters, then
+        # models/restore.py dering) bit-exactly.
+        device_synth = (bool(getattr(self, "use_device_synthesis",
+                                     False))
+                        and not use_haar_wavelet)
+        dtmp = None
+        if device_synth:
+            cfg[57] = 1
+            dtmp = []
+            for pli in range(nplanes):
+                xd, yd = info.plane_dec[pli]
+                d_out = np.zeros((st.frame_height >> yd,
+                                  st.frame_width >> xd), np.int32)
+                dtmp.append(d_out)
+                cfg[28 + 6 * pli] = d_out.ctypes.data
         ap = native_ptr_table(st.adapt)
         lib.fc_decode_frame(dec._h, ap.ctypes.data, cfg.ctypes.data)
         if st.quantizer != 0:
             st.dering_level = lv.reshape(nvdr, nhdr).astype(np.int32)
+        if device_synth:
+            from daala_tpu_torch.models.synthesis import synthesize_frame
+            ctmp = synthesize_frame(st, info, dtmp, self.device)
+            if st.quantizer != 0:
+                self._apply_dering_device(
+                    ctmp, lv.reshape(nvdr, nhdr), is_keyframe)
         del keep
         return ctmp
+
+    def _apply_dering_device(self, ctmp, levels, is_keyframe):
+        """Apply the parsed dering levels on the device, bit-exact with
+        the host filter chain: every superblock with a nonzero level in
+        one batched call per plane (models/restore.py
+        dering_frame_device), where the original filters one superblock
+        and plane at a time.  Every superblock reads the unfiltered
+        int16 copy etmp, so the order does not change the result."""
+        from daala_tpu_torch.models import restore as R
+        from daala_tpu_torch.ops import dering as dering_mod
+        st = self.state
+        info = self.info
+        nhdr = st.frame_width >> 6
+        nvdr = st.frame_height >> 6
+        base_threshold = float(st.quantizer) ** 0.84182
+        etmp = [c.astype(np.int16) for c in ctmp]
+        sbs = np.flatnonzero(levels)
+        if not len(sbs):
+            return
+        lv = levels.reshape(-1)
+        thresholds = [[int(dering_mod.OD_DERING_GAIN_TABLE[int(lv[i])]
+                           * base_threshold * (1 if pli == 0 else 0.6))
+                       for i in sbs] for pli in range(info.nplanes)]
+        xdecs = [info.plane_dec[pli][0] for pli in range(info.nplanes)]
+        outs = R.dering_frame_device(etmp, st.bskip, xdecs, nvdr, nhdr, sbs,
+                                     thresholds, device=self.device)
+        for pli in range(info.nplanes):
+            ln = 6 - xdecs[pli]
+            n = 1 << ln
+            for k, i in enumerate(sbs):
+                sby, sbx = divmod(int(i), nhdr)
+                ctmp[pli][sby << ln:(sby << ln) + n,
+                          sbx << ln:(sbx << ln) + n] = outs[pli][k]
 
     # -- keyframe DC (reference: src/decode.c:605-654) ----------------------
 
@@ -457,7 +534,8 @@ class Decoder:
         blk = part.coding_to_raster(out[None].astype(np.int32), n,
                                     base=base[None])[0]
         d[y0:y0 + n, x0:x0 + n] = blk
-        c[y0:y0 + n, x0:x0 + n] = dct.idct2d(blk[None])[0]
+        if not ctx.get("device_synthesis", False):
+            c[y0:y0 + n, x0:x0 + n] = dct.idct2d(blk[None])[0]
 
     # -- recursive parse (reference: src/decode.c:726-826) ------------------
 
@@ -521,8 +599,9 @@ class Decoder:
                 self._decode_recursive(dec, ctx, pli, 2 * bx + sub[0],
                                        2 * by + sub[1], bsi - 1, xdec,
                                        hgrad, vgrad)
-            filt.postfilter_split(ctx["c"], y0, x0, bs, f, hfilter,
-                                  vfilter)
+            if not ctx.get("device_synthesis", False):
+                filt.postfilter_split(ctx["c"], y0, x0, bs, f, hfilter,
+                                      vfilter)
 
     def _decode_coefficients(self, dec, is_keyframe, use_activity_masking,
                              use_haar_wavelet, self_img):
@@ -552,10 +631,13 @@ class Decoder:
                     filt.apply_prefilter_frame_sbs(mctmp[pli], st.nhsb,
                                                    st.nvsb, xd, yd)
                 mdtmp[pli] = np.zeros_like(mctmp[pli])
+        device_synth = (bool(getattr(self, "use_device_synthesis", False))
+                        and not use_haar_wavelet)
         ctx = {"is_keyframe": bool(is_keyframe), "use_activity_masking":
                use_activity_masking, "d": dtmp, "l": None,
                "use_haar_wavelet": use_haar_wavelet,
-               "mc": mctmp, "md": mdtmp}
+               "mc": mctmp, "md": mdtmp,
+               "device_synthesis": device_synth}
         for sby in range(st.nvsb):
             for sbx in range(st.nhsb):
                 for pli in range(nplanes):
@@ -571,7 +653,13 @@ class Decoder:
                     self._decode_recursive(dec, ctx, pli, sbx, sby,
                                            OD_NBSIZES - 1, xdec, hgrad,
                                            vgrad)
-        if not use_haar_wavelet:
+        if device_synth:
+            # Device back-end: one masked IDCT + postfilter pass per
+            # plane (daala_tpu_torch/models/synthesis.py), bit-exact with
+            # the host loop above.
+            from daala_tpu_torch.models.synthesis import synthesize_frame
+            ctmp = synthesize_frame(st, info, dtmp, self.device)
+        elif not use_haar_wavelet:
             for pli in range(nplanes):
                 xdec = info.plane_dec[pli][0]
                 filt.apply_postfilter_frame_sbs(ctmp[pli], st.nhsb,
@@ -760,6 +848,14 @@ class Decoder:
                 levels[sby, sbx] = level
                 if level:
                     dirs = None
+                    use_dev = bool(getattr(self, "use_device_synthesis",
+                                           False))
+                    if use_dev:
+                        from daala_tpu_torch.models import restore as _R
+                        filt_fn = functools.partial(_R.od_dering_device,
+                                                    device=self.device)
+                    else:
+                        filt_fn = dering_mod.od_dering
                     for pli in range(nplanes):
                         xdec = info.plane_dec[pli][0]
                         ydec = info.plane_dec[pli][1]
@@ -768,7 +864,7 @@ class Decoder:
                         threshold = int(
                             dering_mod.OD_DERING_GAIN_TABLE[level]
                             * base_threshold * (1 if pli == 0 else 0.6))
-                        out, dirs = dering_mod.od_dering(
+                        out, dirs = filt_fn(
                             etmp[pli], sby, sbx, xdec, pli,
                             st.bskip[pli], threshold, n, dirs=dirs)
                         ctmp[pli][sby << ln:(sby << ln) + n,

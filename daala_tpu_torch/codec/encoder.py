@@ -48,8 +48,13 @@ its JAX one; every other method is the original's:
   `device` (mvest.refine_sweep) after the native motion search, where
   the original runs its JAX one; it raises without the native motion
   search.
-- Device dering (`_device_dering`) and the sharding hook
-  (`device_put_fn`), which the port does not have, are left out.
+- With `use_device_analysis`, the dering RDO's candidates (every
+  superblock x the 5 gains) are filtered on `device`
+  (models/restore.py dering_candidates_device, `_device_dering`) and
+  the deferred native dering pass consumes them, byte-identically; the
+  lean tier keeps the native engine's dering, as the original's.
+- The sharding hook (`device_put_fn`), which the port does not have,
+  is left out.
 """
 
 from __future__ import annotations
@@ -707,6 +712,15 @@ class Encoder:
                          getattr(self, "trial_prune_rate_gate", 0.5),
                          getattr(self, "trial_prune_gate_kf", 0.05)],
                         np.float64)
+        # Device dering: defer the native dering stage, batch the 5
+        # filtered gain candidates for every superblock on `device`
+        # (models/restore.py dering_candidates_device), then let the
+        # native RDO/signaling pass consume them — byte-identical.
+        defer_dering = (getattr(self, "_device_dering", False)
+                        and not rdo_only and not use_haar_wavelet
+                        and self.use_dering and st.quantizer != 0)
+        if defer_dering:
+            cfg[73] = 1
         cfg[76] = 1 if self._bs_prune_enabled() else 0
         cfg[78] = 1 if self.trial_rate_approx else 0
         # Device PVQ decision table (models/pvqsearch.py): flatten the
@@ -736,6 +750,23 @@ class Encoder:
                                   cfg.ctypes.data, dcfg.ctypes.data)
         if err:
             raise RuntimeError("native frame encode: EC error %d" % err)
+        if defer_dering:
+            from daala_tpu_torch.models import restore as R
+            nvdr = st.frame_height >> 6
+            nhdr = st.frame_width >> 6
+            cands, dirs = R.dering_candidates_device(
+                ctmp[0].astype(np.int16), st.bskip[0], st.quantizer,
+                nvdr, nhdr, device=self.device)
+            cands = np.ascontiguousarray(cands, np.int16)
+            dirs = np.ascontiguousarray(dirs, np.int32)
+            cfg[74] = cands.ctypes.data
+            cfg[75] = dirs.ctypes.data
+            err = lib.fc_encode_dering(self.enc._h, ap.ctypes.data,
+                                       cfg.ctypes.data,
+                                       dcfg.ctypes.data)
+            if err:
+                raise RuntimeError(
+                    "native dering encode: EC error %d" % err)
         del keep
         return ctmp
 
@@ -975,6 +1006,9 @@ class Encoder:
         # every frame but the Haar-wavelet (lossless keyframe) ones.
         device_on = self.use_device_analysis and not use_haar_wavelet
         self._device_rdo = None
+        # Device dering: the RDO gain candidates batch on `device`
+        # (consumed by the deferred native dering pass).
+        self._device_dering = device_on
         if use_haar_wavelet:
             st.init_superblock_split(4)
         elif hasattr(self, "fixed_bsize"):

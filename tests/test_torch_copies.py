@@ -39,10 +39,12 @@ NETWORKS = ["%s%d" % (k, n) for n in (4, 8, 16, 32, 64)
 COPIES = {
     "codec/blocksize.py": (),
     "codec/decoder.py": (
-        # use_device_synthesis (models/synthesis.py, models/restore.py)
-        "Decoder._decode_coefficients_native", "Decoder._apply_dering_device",
-        "Decoder._block_decode", "Decoder._decode_recursive",
-        "Decoder._decode_coefficients", "Decoder._decode_dering"),
+        # use_device_synthesis with the port's back end
+        # (models/synthesis.py, models/restore.py) on `device`, and its
+        # batched dering
+        "Decoder.__init__", "Decoder._decode_coefficients_native",
+        "Decoder._apply_dering_device", "Decoder._decode_coefficients",
+        "Decoder._decode_dering"),
     "codec/dist.py": (),
     "codec/encoder.py": (
         # device, use_device_analysis, use_device_pvq and
@@ -51,7 +53,7 @@ COPIES = {
         "Encoder.__init__", "Encoder.mv_refine_mode",
         "Encoder.mv_refine_mode#2", "Encoder._encode_one",
         "Encoder._encode_coefficients",
-        # device dering (a JAX tier the port does not have)
+        # device dering: the port's candidates on `device`
         "Encoder._encode_coefficients_native",
         # the Python coefficient path, which ignores the device analysis
         "Encoder._quantize_haar_dc_sb", "Encoder._quantize_haar_dc_level",
@@ -114,6 +116,8 @@ def test_device_layer_imports_no_daala_tpu_and_no_jax():
                  "daala_tpu_torch.codec.encoder",
                  "daala_tpu_torch.models.pvqsearch",
                  "daala_tpu_torch.models.mefield",
+                 "daala_tpu_torch.models.restore",
+                 "daala_tpu_torch.models.synthesis",
                  "daala_tpu_torch.native", "daala_tpu_torch.utils.profile"):
         assert name in mods
     code = ("import importlib, sys\n"

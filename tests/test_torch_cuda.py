@@ -2,8 +2,9 @@
 plain versions at the encoder's 1080p shapes, launch-error reporting,
 the device OBMC predictor against the host's, the encoder on the card
 against the host encoder and (in sweep mode) against itself on the
-CPU, and the lean tier's PVQ band search and SAD fields on the card
-against the CPU.
+CPU, the lean tier's PVQ band search and SAD fields on the card
+against the CPU, and the decoder's device back end (dering and
+synthesis) on the card against the CPU and the host decoder.
 
 Every test here is marked `cuda` and skips without a card.  This file
 imports no jax, so it also runs on a card's host that has none:
@@ -501,3 +502,116 @@ def test_sad_fields_on_card_match_cpu(card):
     want = MF.fullpel_sad_fields(*args, device="cpu")
     for g, wnt in zip(got, want):
         np.testing.assert_array_equal(g, wnt)
+
+
+def _dering_luma(rng):
+    """A 1080p int16 luma plane (17 x 30 superblocks) with rows of the
+    border value, and a skip map with all-skip superblocks (a corner
+    one and an interior one, their windows included) and edge
+    superblocks partly skipped."""
+    luma = rng.integers(-3000, 3000, (1088, 1920)).astype(np.int16)
+    luma[::37] = 30000
+    bskip = (rng.random((272, 480)) < 0.5).astype(np.uint8)
+    bskip[:17, :17] = 1
+    bskip[79:97, 239:257] = 1
+    return luma, bskip
+
+
+def test_dering_candidates_on_card_match_cpu(card):
+    """models/restore.py's candidates of every 1080p superblock x the 5
+    gains: the card's equal the CPU's, directions too."""
+    from daala_tpu_torch.models import restore as TR
+    luma, bskip = _dering_luma(np.random.default_rng(12))
+    args = (luma, bskip, 271, 17, 30)
+    cands, dirs = TR.dering_candidates_device(*args, device=card)
+    want_c, want_d = TR.dering_candidates_device(*args, device="cpu")
+    np.testing.assert_array_equal(dirs, want_d)
+    np.testing.assert_array_equal(cands, want_c)
+    np.testing.assert_array_equal(cands[0, 4], luma[:64, :64])
+
+
+def test_frame_dering_on_card_matches_cpu(card):
+    """The decoder's batched dering of a 1080p 4:2:0 frame (every
+    superblock with a random level, chroma on luma's directions): card
+    equals CPU."""
+    from daala_tpu_torch.models import restore as TR
+    rng = np.random.default_rng(13)
+    luma, bskip = _dering_luma(rng)
+    chroma = [rng.integers(-3000, 3000, (544, 960)).astype(np.int16)
+              for _ in range(2)]
+    cskip = [(rng.random((136, 240)) < 0.5).astype(np.uint8)
+             for _ in range(2)]
+    sbs = np.flatnonzero(rng.random(17 * 30) < 0.7)
+    thr = [rng.integers(10, 300, len(sbs)).tolist() for _ in range(3)]
+    args = ([luma] + chroma, [bskip] + cskip, [0, 1, 1], 17, 30, sbs, thr)
+    got = TR.dering_frame_device(*args, device=card)
+    want = TR.dering_frame_device(*args, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _random_bsize(state, rng):
+    """A random valid block-size quadtree in state.bsize (8x8 cells)."""
+    def rec(cx, cy, bsi):
+        if bsi == 1:
+            state.bsize[cy, cx] = rng.integers(0, 2)
+        elif rng.random() < 0.6:
+            half = 1 << (bsi - 2)
+            for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                rec(cx + dx * half, cy + dy * half, bsi - 1)
+        else:
+            k = 1 << (bsi - 1)
+            state.bsize[cy:cy + k, cx:cx + k] = bsi
+    for sby in range(state.nvsb):
+        for sbx in range(state.nhsb):
+            rec(sbx * 8, sby * 8, 4)
+
+
+def test_synthesis_on_card_matches_cpu(card):
+    """models/synthesis.py synthesize_frame on a 1080p frame with a
+    random block-size map (every leaf size, split postfilters at every
+    level): the card's planes equal the CPU's, and both kernels ran."""
+    from daala_tpu_torch.codec.state import CodecState
+    from daala_tpu_torch.models import synthesis as SY
+    rng = np.random.default_rng(14)
+    info = headers.Info(pic_width=1920, pic_height=1080)
+    state = CodecState(info)
+    _random_bsize(state, rng)
+    d = [rng.integers(-4000, 4000, (1088 >> yd, 1920 >> xd)).astype(np.int32)
+         for xd, yd in info.plane_dec[:3]]
+    devstats.reset()
+    got = SY.synthesize_frame(state, info, d, card)
+    launches = devstats.snapshot()["launches"]
+    want = SY.synthesize_frame(state, info, d, "cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert launches.get("lap_frame") == 3
+    assert launches.get("dct_frame", 0) >= 3 * 4
+
+
+def test_decode_on_card_matches_host(card):
+    """bench.py's 1080p clip (a keyframe and an inter frame, its preset)
+    encoded on the card, then decoded by the port's Decoder with its
+    device back end on the card and by its host Decoder: equal planes."""
+    from daala_tpu_torch.codec.decoder import Decoder
+    from daala_tpu_torch.utils.profile import ENCODER_KW, translation_clip
+    if native.get_lib() is None:
+        pytest.fail("the native engine did not build")
+    frames = translation_clip(nframes=2)
+    info = headers.Info(pic_width=1920, pic_height=1080)
+    enc = Encoder(info, device=card, **ENCODER_KW)
+    enc.keyframe_rate = 256
+    pk = [bytes(p) for fr in frames for p in enc.encode_frame(fr)]
+    outs = {}
+    devstats.reset()
+    for name, dec in (("card", Decoder(info, device=card,
+                                       use_device_synthesis=True)),
+                      ("host", Decoder(info))):
+        outs[name] = [o for p in pk for o in dec.decode_packet(p)]
+    assert len(outs["card"]) == len(outs["host"]) == 2
+    for a, b in zip(outs["card"], outs["host"]):
+        for pli in range(3):
+            np.testing.assert_array_equal(a[pli], b[pli])
+    snap = devstats.snapshot()
+    assert snap["launches"].get("lap_frame", 0) >= 6
+    assert snap["spans_s"]["synthesize_frame"] > 0

@@ -21,6 +21,8 @@ from daala_tpu.codec import headers
 from daala_tpu.codec.encoder import Encoder as HostEncoder
 from daala_tpu_torch.codec.encoder import Encoder
 from daala_tpu_torch.models import keyframe as TKF
+from daala_tpu_torch.models import restore as TR
+from daala_tpu_torch.utils import devstats
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="native engine unavailable")
@@ -111,22 +113,72 @@ def test_fpr_highdepth_matches_host():
 
 def test_matches_jax_device_tier():
     """One clip (a keyframe and an inter frame) against the JAX
-    use_device_analysis tier.  Dering is off on both sides: with the JAX
-    tier on it would also run daala_tpu's device dering, which the port
-    does not have yet."""
+    use_device_analysis tier, with dering on: both sides filter the
+    dering candidates on their device tier (the port's
+    dering_candidates_device on the CPU, JAX's on its CPU backend)."""
     w, h = 128, 64
     frames = _clip(w, h, 2, seed=3)
     pk = {}
     for name in ("jax", "port"):
         info = headers.Info(pic_width=w, pic_height=h)
         if name == "jax":
-            enc = HostEncoder(info, quant=15, complexity=1, use_dering=False)
+            enc = HostEncoder(info, quant=15, complexity=1)
             enc.use_device_analysis = True
         else:
-            enc = Encoder(info, device="cpu", quant=15, complexity=1,
-                          use_dering=False)
+            enc = Encoder(info, device="cpu", quant=15, complexity=1)
+        devstats.reset()
         pk[name] = _encode(enc, frames)
+    assert devstats.snapshot()["spans_s"]["dering_candidates"] > 0
     assert pk["port"] == pk["jax"]
+
+
+def _levels_of_first_frame(enc, frame):
+    """The packet of `frame` (a keyframe) and the dering levels it chose."""
+    enc.keyframe_rate = 8
+    pk = [bytes(p) for p in enc.encode_frame(frame)]
+    st = enc.state
+    return pk, st.dering_level.reshape(st.frame_height >> 6,
+                                       st.frame_width >> 6).copy()
+
+
+def test_dering_candidates_are_consumed(monkeypatch):
+    """Spoiling the candidate that the dering RDO chose for one
+    superblock (its level's, +4096 on every pixel) changes that choice
+    and so the packet: the native pass really reads the candidates that
+    dering_candidates_device returns."""
+    w, h = 96, 64
+    frame = _clip(w, h, 1, seed=2)[0]
+
+    def run():
+        return _levels_of_first_frame(
+            Encoder(headers.Info(pic_width=w, pic_height=h), device="cpu",
+                    quant=18, complexity=1), frame)
+
+    base, levels = run()
+    sb = int(np.flatnonzero(levels)[0])
+    level = int(levels.flat[sb])
+    real = TR.dering_candidates_device
+
+    def spoiled(*args, **kwargs):
+        cands, dirs = real(*args, **kwargs)
+        cands[sb, level - 1] += 4096
+        return cands, dirs
+    monkeypatch.setattr(TR, "dering_candidates_device", spoiled)
+    pk, new_levels = run()
+    assert new_levels.flat[sb] != level and pk != base
+
+
+def test_lean_tier_keeps_native_dering(monkeypatch):
+    """The lean tier (bench.py's `device` configuration) leaves dering to
+    the native pass, as JAX's does: no device candidates."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("dering candidates in the lean tier")
+    monkeypatch.setattr(TR, "dering_candidates_device", refuse)
+    enc = Encoder(headers.Info(pic_width=96, pic_height=64), device="cpu",
+                  quant=18, complexity=1, use_device_analysis=False,
+                  use_device_pvq=True)
+    _, levels = _levels_of_first_frame(enc, _clip(96, 64, 1, seed=2)[0])
+    assert levels.any()
 
 
 def _perturbed(fn, edit):

@@ -511,6 +511,49 @@ def test_lean_tables_match_jax(monkeypatch):
 
 
 @needs_native
+def test_lean_sweep_tables_match_jax():
+    """bench.py's `device+sweep` configuration on the CPU: the port's lean
+    tier with the colour sweep (use_device_analysis=False,
+    use_device_pvq=True, mv_refine_mode="sweep") encodes a 96x64 clip
+    with the encoder check on, and in every frame its decision table
+    agrees with that of JAX's lean tier with its sweep (use_device_pvq,
+    mv_refine_mode = "sweep") on at least 99% of rows."""
+    import chip_smoke
+    w, h = 96, 64
+    frames = content.make_clip(w, h, 3, seed=5)
+    tables = {}
+    for name in ("jax", "port"):
+        info = H.Info(pic_width=w, pic_height=h)
+        if name == "jax":
+            enc = HostEncoder(info, quant=18, complexity=7)
+            enc.use_device_pvq = True
+            enc.mv_refine_mode = "sweep"
+        else:
+            enc = Encoder(info, quant=18, complexity=7, device="cpu",
+                          use_device_analysis=False, use_device_pvq=True,
+                          mv_refine_mode="sweep")
+            enc.enable_encoder_check = True
+        enc.fixed_bsize = 0
+        tabs = tables[name] = []
+
+        def capture(*args, real=enc._encode_coefficients, enc=enc,
+                    tabs=tabs, **kw):
+            tabs.append(chip_smoke.table_rows(enc._device_pvq_tab))
+            return real(*args, **kw)
+        enc._encode_coefficients = capture
+        devstats.reset()
+        for fr in frames:
+            enc.encode_frame(fr)
+        if name == "port":
+            assert devstats.snapshot()["spans_s"]["refine_sweep"] > 0
+    assert len(tables["jax"]) == len(tables["port"]) == len(frames)
+    for a, b in zip(tables["port"], tables["jax"]):
+        assert a.keys() == b.keys() and len(a) > 100
+        same = sum(a[k] == b[k] for k in a)
+        assert same >= 0.99 * len(a), (same, len(a))
+
+
+@needs_native
 @pytest.mark.slow
 def test_lean_tier_1080p_matches_jax():
     """bench.py's 1080p translation clip and preset (4 frames; the
