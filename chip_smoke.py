@@ -97,6 +97,10 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    CPU searches the same planes too: the two decision tables must agree
    on at least 99% of rows in every frame (the float32 RDO may flip
    near-ties between the devices; the rows that differ are printed).
+   Then the same in the lean tier with the sweep (bench.py's
+   device+sweep configuration), where obmc_leaf_cells must launch, and,
+   as information, phase 3's 1080p clip and preset in it on the card
+   (bytes, Mpix/s, devstats).
 6. The decoder: phase 3's card packets decoded by the port's Decoder
    with its device back end on the card (Decoder(info, device=...,
    use_device_synthesis=True): the native parse, then
@@ -107,12 +111,33 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    Prints the decode wall per frame on the card and on the host, the
    synthesize_frame and dering_frame spans, the launches and the
    host<->device bytes.
+7a. The uniform-quantizer pipeline (models/analysis.py encode_step)
+   over a (4, 1088, 1920) uint8 batch from the seed, bs = 1, quant
+   3840, through parallel/mesh.py batch_encode_step on make_mesh() (the
+   card) and on the CPU: rec bit for bit, sse and nz (int32, wrapped)
+   equal; lap_frame and dct_frame launched 8 times each, forward and
+   inverse.  Prints the wall.
+7b. parallel/mesh.py encode_clips_batched of bench.py's two 1080p clips
+   (translation: phase 3's frames; natural: profile.make_natural_clip
+   with seed 3), 4 frames each, phase 3's preset, on make_mesh(), in
+   the round-robin schedule and with one thread (and CUDA stream) per
+   clip.  Each clip's packets are byte-identical in both schedules and
+   to a serial card encode (the translation clip's is phase 3's); the
+   natural clip's card packets equal its CPU packets; lap_frame and
+   dct_frame launched as often in both schedules.  Prints each
+   schedule's wall, Mpix/s (all clips' pixels over the wall) and their
+   ratio, as information.
+7c. parallel/mesh.py encode_clip_parallel of textured_clip at 320x192,
+   32 frames, in 16-frame segments on 2 spawned workers on the card:
+   the packets of serial card encodes of each segment, decoded by the
+   port's host Decoder (32 frames; luma PSNR printed).
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
    obmc_leaf_cells from phase 4b) and, beside them, its launches in
-   phase 6's decode ("decode_launches"), error, times and bound; then,
-   as the last line, {"ok": true, "device": {"platform": "gpu",
-   "kind": ..., "count": ...}}.
+   phase 6's decode ("decode_launches") and in phases 7a-7b (both
+   schedules; "batch_launches"), error, times and bound; then, as the
+   last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
+   "count": ...}}.
 
 Without a CUDA device, or without the repository beside it, it exits
 nonzero and prints no result.  tests/ imports its case generators
@@ -245,7 +270,8 @@ def random_grid(info, rng, levels=3, bframe=False):
 
 def textured_clip(w, h, n, seed=5):
     """tests/test_mesweep.py's clip: a moving textured patch over a
-    rolling smooth background, with noise; the mesh subdivides on it."""
+    rolling smooth background, with noise; the mesh subdivides on it.
+    The patch wraps around the frame where it would leave it."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     base = (128 + 60 * np.sin(xx / 9.0) + 30 * np.cos(yy / 7.0)) \
@@ -254,7 +280,7 @@ def textured_clip(w, h, n, seed=5):
     frames = []
     for t in range(n):
         y = np.roll(base, (t, 2 * t), (0, 1)).copy()
-        oy, ox = 20 + 5 * t, 30 + 7 * t
+        oy, ox = (20 + 5 * t) % (h - 31), (30 + 7 * t) % (w - 31)
         y[oy:oy + 32, ox:ox + 32] += tex
         y = (y + rng.normal(0, 3, (h, w))).clip(0, 255).astype(np.uint8)
         cb = (128 + 20 * np.sin((xx[::2, ::2] + t) / 13.0)) \
@@ -879,7 +905,7 @@ def luma_psnr(frames, packets, info):
     """Mean over frames of the luma PSNR of the port's Decoder's output
     of `packets` against `frames`."""
     from daala_tpu_torch.codec.decoder import Decoder
-    dec = Decoder(info)
+    dec = Decoder(info, use_device_synthesis=False)
     outs = [o for p in packets for o in dec.decode_packet(p)]
     if len(outs) != len(frames):
         raise AssertionError("decoded %d frames of %d" % (len(outs),
@@ -1171,7 +1197,7 @@ def phase_decoder(torch, dev, ref):
     card, card_w = decode(Decoder(info, device=dev,
                                   use_device_synthesis=True))
     snap = devstats.snapshot()
-    host, host_w = decode(Decoder(info))
+    host, host_w = decode(Decoder(info, use_device_synthesis=False))
     cpu, cpu_w = decode(Decoder(info, device="cpu",
                                 use_device_synthesis=True))
     if not len(card) == len(host) == len(cpu) == len(ref["packets"]):
@@ -1215,13 +1241,17 @@ def table_rows(table):
     return out
 
 
-def phase_lean_small(torch, dev):
-    """Phase 4c."""
+def phase_lean_small(torch, dev, sweep=False):
+    """Phase 4c; with sweep, its lean+sweep half (bench.py's device+sweep
+    configuration), in which obmc_leaf_cells must launch."""
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.models import pvqsearch as PS
+    from daala_tpu_torch.utils import devstats
     w, h = 640, 368
     frames = textured_clip(w, h, 4)
     info = headers.Info(pic_width=w, pic_height=h)
+    mode = dict(mv_refine_mode="sweep") if sweep else {}
+    label = "lean%s %dx%d" % ("+sweep" if sweep else "", w, h)
     real = PS.search_frame
     agree = []
 
@@ -1241,10 +1271,10 @@ def phase_lean_small(torch, dev):
                 raise AssertionError("card and cpu tables hold other rows")
             diff = sorted(k for k in a if a[k] != b[k])
             agree.append((len(a) - len(diff), len(a)))
-            print("lean %dx%d frame %d (%s): card and cpu tables agree on "
-                  "%d of %d rows" % (w, h, len(agree) - 1,
-                                     "keyframe" if is_keyframe else "inter",
-                                     len(a) - len(diff), len(a)))
+            print("%s frame %d (%s): card and cpu tables agree on %d of %d "
+                  "rows" % (label, len(agree) - 1,
+                            "keyframe" if is_keyframe else "inter",
+                            len(a) - len(diff), len(a)))
             for k in diff[:8]:
                 print("  differs at (pli, bs, by4, bx4, band) %s: card %s, "
                       "cpu %s" % (k, a[k][:6], b[k][:6]))
@@ -1253,17 +1283,21 @@ def phase_lean_small(torch, dev):
 
     PS.search_frame = both
     try:
+        devstats.reset()
         card_pk, card_s = encode(lean_encoder(info, dev, quant=25,
-                                              complexity=7), frames)
+                                              complexity=7, **mode), frames)
+        torch.cuda.synchronize()
+        snap = devstats.snapshot()
     finally:
         PS.search_frame = real
     cpu_pk, cpu_s = encode(lean_encoder(info, "cpu", quant=25,
-                                        complexity=7), frames)
-    print("lean %dx%d: %s %d bytes (%.2f s), cpu %d bytes (%.2f s), packets "
-          "%s; encoder check passed on both" % (
-              w, h, dev, sum(map(len, card_pk)), card_s,
+                                        complexity=7, **mode), frames)
+    print("%s: %s %d bytes (%.2f s), cpu %d bytes (%.2f s), packets %s; "
+          "encoder check passed on both; %s launches %s" % (
+              label, dev, sum(map(len, card_pk)), card_s,
               sum(map(len, cpu_pk)), cpu_s,
-              "identical" if card_pk == cpu_pk else "differ"))
+              "identical" if card_pk == cpu_pk else "differ", dev,
+              snap["launches"]))
     if len(agree) != len(frames):
         raise AssertionError("%d searched frames of %d" % (len(agree),
                                                             len(frames)))
@@ -1271,11 +1305,218 @@ def phase_lean_small(torch, dev):
         if same < 0.99 * total:
             raise AssertionError("card and cpu tables agree on %d of %d rows"
                                  % (same, total))
+    if sweep and snap["launches"].get("obmc_leaf_cells", 0) <= 0:
+        raise AssertionError("obmc_leaf_cells never launched (%s)" % label)
 
 
-def kernel_line(kern, launches, decode_launches):
-    """The kernels line: each kernel's launches on the encoder's path and
-    in the decode, and its numbers summed over phase 2's and 2b's timed
+def phase_lean_sweep_1080p(torch, dev):
+    """Phase 4c, information: phase 3's clip and preset in the lean tier
+    with the sweep on the card, encoder check on."""
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.utils import devstats
+    from daala_tpu_torch.utils.profile import (ENCODER_KW, H, NFRAMES, W,
+                                               translation_clip)
+    enc = lean_encoder(headers.Info(pic_width=W, pic_height=H), dev,
+                       mv_refine_mode="sweep", **ENCODER_KW)
+    devstats.reset()
+    pk, secs = encode(enc, translation_clip())
+    torch.cuda.synchronize()
+    snap = devstats.snapshot()
+    print("lean+sweep %dx%d on %s: %d packets, %d bytes, %.3f Mpix/s (%.2f "
+          "s), encoder check passed [information only]"
+          % (W, H, dev, len(pk), sum(map(len, pk)),
+             NFRAMES * W * H / 1e6 / secs, secs))
+    print("devstats: " + json.dumps(snap, sort_keys=True))
+
+
+def _watch_directions(calls):
+    """Replace lap_frame_cuda and dct_frame_cuda by wrappers that append
+    (kernel name, forward) of every call to `calls`; returns the function
+    that restores them."""
+    from daala_tpu_torch.ops.cuda import dct_kernels as D, lap_kernels as LK
+    real_lap, real_dct = LK.lap_frame_cuda, D.dct_frame_cuda
+
+    def lap(frame, sb_x=64, sb_y=64, forward=True):
+        calls.append((LK.NAME, bool(forward)))
+        return real_lap(frame, sb_x, sb_y, forward)
+
+    def dct(frame, n, forward=True):
+        calls.append((D.NAME, bool(forward)))
+        return real_dct(frame, n, forward)
+    LK.lap_frame_cuda, D.dct_frame_cuda = lap, dct
+
+    def restore():
+        LK.lap_frame_cuda, D.dct_frame_cuda = real_lap, real_dct
+    return restore
+
+
+def phase_batch_step(torch, dev):
+    """Phase 7a: mesh.batch_encode_step on a (4, 1088, 1920) uint8 batch
+    (bs = 1, quant = 3840) on make_mesh() and on the CPU: equal rec, sse
+    and nz; both kernels launched in both directions.  Returns the
+    launches."""
+    from daala_tpu_torch.parallel import mesh as PM
+    from daala_tpu_torch.utils import devstats
+    frames = np.random.default_rng(SEED).integers(0, 256, (4, 1088, 1920),
+                                                  np.uint8)
+    mesh = PM.make_mesh()
+    shards = PM.shard_batch(frames, mesh)
+    PM.batch_encode_step([s[:1] for s in shards])  # warm-up
+    torch.cuda.synchronize()
+    calls = []
+    restore = _watch_directions(calls)
+    try:
+        devstats.reset()
+        t0 = time.perf_counter()
+        rec, sse, nz = PM.batch_encode_step(shards)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        snap = devstats.snapshot()
+    finally:
+        restore()
+    t0 = time.perf_counter()
+    want = PM.batch_encode_step([torch.from_numpy(frames)])
+    cpu_s = time.perf_counter() - t0
+    got = torch.cat([r.cpu() for r in rec])
+    if not (torch.equal(got, want[0][0]) and (sse, nz) == want[1:]):
+        raise AssertionError("batch_encode_step differs between %s and cpu "
+                             "(sse %d / %d, nz %d / %d)"
+                             % (dev, sse, want[1], nz, want[2]))
+    directions = sorted(set(calls))
+    print("batch step: (4, 1088, 1920) uint8, bs 1, quant 3840 on a %s mesh "
+          "of %s: rec, sse %d and nz %d equal to cpu; %s wall %.4f s "
+          "(%.3f Mpix/s), cpu %.4f s; launches %s; (kernel, forward) %s"
+          % (mesh.shape, [str(d) for d in mesh.ravel()], sse, nz, dev, card_s,
+             4 * 1088 * 1920 / 1e6 / card_s, cpu_s, snap["launches"],
+             directions))
+    for name in ("lap_frame", "dct_frame"):
+        if {(name, True), (name, False)} - set(calls):
+            raise AssertionError("%s did not launch in both directions"
+                                 % name)
+        if snap["launches"].get(name, 0) != 2 * len(frames):
+            raise AssertionError("%s launched %s times, not %d" % (
+                name, snap["launches"].get(name), 2 * len(frames)))
+    return snap["launches"]
+
+
+def phase_clips_batched(torch, dev, ref):
+    """Phase 7b: encode_clips_batched of bench.py's two 1080p clips
+    (translation: phase 3's frames; natural) on make_mesh(), in both
+    schedules; returns the launches of both runs together."""
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.codec.encoder import Encoder
+    from daala_tpu_torch.parallel import mesh as PM
+    from daala_tpu_torch.utils import devstats
+    from daala_tpu_torch.utils.profile import (ENCODER_KW, H, NFRAMES, W,
+                                               make_natural_clip,
+                                               translation_clip)
+    t0 = time.perf_counter()
+    clips = [translation_clip(), make_natural_clip(W, H, NFRAMES, seed=3)]
+    print("clips batched: natural clip made in %.2f s"
+          % (time.perf_counter() - t0))
+    info = headers.Info(pic_width=W, pic_height=H)
+    kw = {k: v for k, v in ENCODER_KW.items()
+          if k not in ("quant", "complexity")}
+    mesh = PM.make_mesh()
+    runs, total = {}, {}
+    for threads in (False, True):
+        devstats.reset()
+        t0 = time.perf_counter()
+        outs = PM.encode_clips_batched(
+            clips, dict(pic_width=W, pic_height=H), mesh,
+            quant=ENCODER_KW["quant"], complexity=ENCODER_KW["complexity"],
+            enc_kwargs=kw, threads=threads)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        snap = devstats.snapshot()
+        runs[threads] = ([[bytes(p) for p in o] for o in outs], secs,
+                         snap["launches"])
+        for k, v in snap["launches"].items():
+            total[k] = total.get(k, 0) + v
+        print("clips batched, %s: %d clips x %d frames at %dx%d, %.2f s, "
+              "%.3f Mpix/s; launches %s; spans %s" % (
+                  "threads" if threads else "round-robin", len(clips),
+                  NFRAMES, W, H, secs,
+                  len(clips) * NFRAMES * W * H / 1e6 / secs,
+                  snap["launches"],
+                  {k: round(v, 4) for k, v in snap["spans_s"].items()}))
+    serial_card, _ = encode(Encoder(info, device=dev, **ENCODER_KW),
+                            clips[1])
+    cpu_nat, cpu_s = encode(Encoder(info, device="cpu", **ENCODER_KW),
+                            clips[1])
+    serial = [ref["packets"], serial_card]
+    for threads, (outs, _, _) in runs.items():
+        for ci, name in enumerate(("translation", "natural")):
+            if outs[ci] != serial[ci]:
+                raise AssertionError(
+                    "batched %s clip (threads=%s) differs from its serial "
+                    "card encode" % (name, threads))
+    if serial_card != cpu_nat:
+        raise AssertionError("natural clip: card packets differ from the "
+                             "cpu run's")
+    for name in ("lap_frame", "dct_frame"):
+        a, b = runs[False][2].get(name, 0), runs[True][2].get(name, 0)
+        if not a == b > 0:
+            raise AssertionError("%s launches differ between the schedules "
+                                 "(%d round-robin, %d threads)" % (name, a, b))
+    rr, th = runs[False][1], runs[True][1]
+    print("clips batched: both clips byte-identical across schedules and to "
+          "serial card encodes (translation %d bytes = phase 3's, natural "
+          "%d bytes); natural clip card == cpu (cpu %.2f s), encoder check "
+          "passed on both; walls round-robin %.2f s, threads %.2f s, ratio "
+          "%.3f (round-robin / threads) [information only]"
+          % (sum(map(len, serial[0])), sum(map(len, serial[1])), cpu_s, rr,
+             th, rr / th))
+    return total
+
+
+def phase_segments(torch, dev):
+    """Phase 7c: encode_clip_parallel of a 320x192, 32-frame clip in 16-
+    frame segments on 2 spawned workers on the card: decodable, and the
+    packets of serial card encodes of each segment by a fresh Encoder
+    with a keyframe every 16 frames.  One encoder over the whole clip
+    differs from frame 20 on: its golden frames (every 10th keyframe or
+    P frame it codes, codec/encoder.py `ip_frame_count`) run across the
+    keyframe at frame 16 (printed as information)."""
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.codec.encoder import Encoder
+    from daala_tpu_torch.parallel import mesh as PM
+    w, h, n, seg = 320, 192, 32, 16
+    frames = textured_clip(w, h, n)
+    info_kwargs = dict(pic_width=w, pic_height=h)
+    kw = dict(quant=25, complexity=7, device=str(dev))
+    t0 = time.perf_counter()
+    pkts = [bytes(p) for p in PM.encode_clip_parallel(
+        frames, info_kwargs, kw, segment_len=seg, workers=2)]
+    par_s = time.perf_counter() - t0
+    info = headers.Info(keyframe_rate=seg, **info_kwargs)
+
+    def serial(clip):
+        enc = Encoder(info, **kw)
+        return ([bytes(p) for fr in clip for p in enc.encode_frame(fr)]
+                + [bytes(p) for p in enc.flush()])
+    t0 = time.perf_counter()
+    want = [p for i in range(0, n, seg) for p in serial(frames[i:i + seg])]
+    ser_s = time.perf_counter() - t0
+    if pkts != want:
+        raise AssertionError("segment-parallel packets differ from the "
+                             "serial encodes of the segments")
+    whole = serial(frames)
+    psnr = luma_psnr(frames, pkts, info)
+    print("segments: %dx%d, %d frames in %d-frame segments on 2 spawned "
+          "workers on %s (%.2f s, with their start-up) = serial encodes of "
+          "the segments (%.2f s), %d bytes; decoded by the port's host "
+          "Decoder, %d frames, luma PSNR %.4f dB; one encoder over the "
+          "clip: %d bytes, other packets at frames %s [information only]"
+          % (w, h, n, seg, dev, par_s, ser_s, sum(map(len, pkts)), n, psnr,
+             sum(map(len, whole)),
+             [i for i, (a, b) in enumerate(zip(whole, pkts)) if a != b]))
+
+
+def kernel_line(kern, launches, decode_launches, batch_launches):
+    """The kernels line: each kernel's launches on the encoder's path, in
+    the decode and in the batched phases 7a-7b, and its numbers summed
+    over phase 2's and 2b's timed
     variants (each shape, size, direction or bit depth once):
     per-call medians through the wrapper ("ms"), the kernels' device time
     per call in the trace ("device_ms"), the plain version's, and the
@@ -1299,6 +1540,7 @@ def kernel_line(kern, launches, decode_launches):
             "source": "daala_tpu_torch/csrc/" + src, "replaces": rep,
             "launches": launches.get(name),
             "decode_launches": decode_launches.get(name, 0),
+            "batch_launches": batch_launches.get(name, 0),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -1330,24 +1572,43 @@ def main(argv=None):
     if args.ab:
         phase_ab(torch, dev, args.ab)
         return 0
+    t_start = time.perf_counter()
+
+    def run(name, fn, *a, **kw):
+        """fn(*a, **kw), printing the phase's wall (the run's time budget
+        is kept with these)."""
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        print("time: phase %s %.1f s (run %.1f s)" % (
+            name, time.perf_counter() - t0, time.perf_counter() - t_start))
+        return out
+
     kern = {}
-    phase_kernels(torch, dev, kern)
-    phase_obmc_kernels(torch, dev, kern)
-    launches = phase_obmc_frame(torch, dev)
-    ref = phase_encoder(torch, dev)
+    run("2", phase_kernels, torch, dev, kern)
+    run("2b", phase_obmc_kernels, torch, dev, kern)
+    launches = run("2c", phase_obmc_frame, torch, dev)
+    ref = run("3", phase_encoder, torch, dev)
     launches.update({k: v for k, v in ref["launches"].items()
                      if k in ("lap_frame", "dct_frame")})
-    phase_lean(torch, dev, ref)
-    phase_fields(torch, dev)
-    phase_dering_candidates(torch, dev)
-    launches["obmc_leaf_cells"] = phase_sweep(torch, dev)["obmc_leaf_cells"]
-    phase_lean_small(torch, dev)
-    decode_launches = phase_decoder(torch, dev, ref)
+    run("3c", phase_lean, torch, dev, ref)
+    run("3d", phase_fields, torch, dev)
+    run("3e", phase_dering_candidates, torch, dev)
+    launches["obmc_leaf_cells"] = run(
+        "4", phase_sweep, torch, dev)["obmc_leaf_cells"]
+    run("4c", phase_lean_small, torch, dev)
+    run("4c sweep", phase_lean_small, torch, dev, sweep=True)
+    run("4c sweep 1080p", phase_lean_sweep_1080p, torch, dev)
+    decode_launches = run("6", phase_decoder, torch, dev, ref)
+    batch_launches = run("7a", phase_batch_step, torch, dev)
+    for k, v in run("7b", phase_clips_batched, torch, dev, ref).items():
+        batch_launches[k] = batch_launches.get(k, 0) + v
+    run("7c", phase_segments, torch, dev)
     leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:
         raise AssertionError("imported: %s" % leaked)
-    print(json.dumps(kernel_line(kern, launches, decode_launches)))
+    print(json.dumps(kernel_line(kern, launches, decode_launches,
+                                 batch_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,9 +7,10 @@ decode is host-side and sequential (it must be); the reconstruction math
 
 The port's copy of daala_tpu/codec/decoder.py;
 tests/test_torch_copies.py holds it to the original.  Where the original
-has its JAX device back end, the copy has the port's:
-`Decoder(info, device=..., use_device_synthesis=True)` parses each frame
-in the native engine's parse-only mode, reconstructs it on `device`
+has its JAX device back end, the copy has the port's, and runs it by
+default: `Decoder(info)` (on the card; `device="cpu"` where the caller
+asks for the CPU) parses each frame in the native engine's parse-only
+mode, reconstructs it on `device`
 (models/synthesis.py synthesize_frame: masked inverse DCTs, split and
 frame postfilters through the port's kernels) and applies the parsed
 dering levels there (models/restore.py), bit-exact with the host
@@ -17,6 +18,7 @@ decoder.  The native path derings every superblock of a plane in one
 batched call (`_apply_dering_device`); the Python path
 (DAALA_TPU_NATIVE_FRAME=0) filters one superblock at a time as the
 original does.  Haar-wavelet (lossless) frames decode on the host.
+`Decoder(info, use_device_synthesis=False)` is the host decoder.
 """
 
 from __future__ import annotations
@@ -70,16 +72,18 @@ def _set_loc(dec, x, y, layer, level):
 
 class Decoder:
     def __init__(self, info: headers.Info, *, device=None,
-                 use_device_synthesis=False):
+                 use_device_synthesis=True):
         self.info = info
-        # The device back end: reconstruction and dering on `device`
-        # (required with the switch, and only with it).
+        # The device back end (the default): reconstruction and dering
+        # on `device`, the card unless the caller names another.  The
+        # host decoder is asked for by name (use_device_synthesis=False)
+        # and takes no device.
         self.use_device_synthesis = bool(use_device_synthesis)
         if self.use_device_synthesis:
-            self.device = resolve(device)
+            self.device = resolve("cuda" if device is None else device)
         elif device is not None:
-            raise ValueError("Decoder: a device without "
-                             "use_device_synthesis=True would go unused")
+            raise ValueError("Decoder: a device with "
+                             "use_device_synthesis=False would go unused")
         else:
             self.device = None
         self.state = CodecState(info)

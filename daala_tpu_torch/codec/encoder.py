@@ -25,8 +25,9 @@ tests/test_torch_copies.py holds it to the original.  It is the port's
 `Encoder`, with the port's device tier built in where the original has
 its JAX one; every other method is the original's:
 
-- `device` ('cpu' or 'cuda[:N]', required) is where the device tier
-  runs.  Its two switches carry the original's attribute names:
+- `device` ('cuda[:N]' by default, or 'cpu' where the caller asks
+  for it) is where the device tier runs; without a card 'cuda'
+  raises.  Its two switches carry the original's attribute names:
   - `use_device_analysis` (default True), the byte-identical tier:
     models/keyframe.py computes the RDO trial pass's transform pyramid
     and the final pass's planes on `device` for every frame, and the
@@ -126,7 +127,7 @@ class Encoder:
                  use_activity_masking=True, qm=OD_HVS_QM, use_dering=True,
                  bitrate=0, trial_rate_approx=False,
                  trial_prune_boost=1.0, trial_prune_rate_gate=0.5,
-                 trial_prune_gate_kf=0.05, *, device,
+                 trial_prune_gate_kf=0.05, *, device="cuda",
                  mv_refine_mode="greedy", use_device_analysis=True,
                  use_device_pvq=False):
         self.info = info
@@ -1171,11 +1172,12 @@ class Encoder:
     def _encoder_check(self, packet):
         """Re-decode the packet with an embedded decoder and compare its
         coding-order recon to ours (reference: src/encode.c:3231-3272).
-        Raises on mismatch rather than printing like the reference."""
+        Raises on mismatch rather than printing like the reference.  The
+        embedded decoder is the host decoder, as the original's."""
         import numpy as np
         if self._check_dec is None:
             from daala_tpu_torch.codec.decoder import Decoder
-            self._check_dec = Decoder(self.info)
+            self._check_dec = Decoder(self.info, use_device_synthesis=False)
         self._check_dec.decode_packet(packet)
         for pli, (ours, theirs) in enumerate(
                 zip(self.recon, self._check_dec.last_recon)):

@@ -1,5 +1,8 @@
-"""Device resolution: every entry point of the port takes its device as
-an explicit argument; nothing is chosen behind the caller's back."""
+"""Device resolution.  The port's entry points (codec.encoder.Encoder,
+codec.decoder.Decoder, parallel.mesh) run on the card unless the caller
+asks for the CPU; the device functions below them take the device their
+caller resolved.  Nothing falls back to the CPU behind the caller's
+back."""
 
 from __future__ import annotations
 

@@ -44,6 +44,7 @@ import math
 import numpy as np
 import torch
 
+from daala_tpu_torch.models.analysis import wrap32 as _wrap32
 from daala_tpu_torch.ops import partition as part
 from daala_tpu_torch.ops import pvq as P
 from daala_tpu_torch.utils import devstats
@@ -92,11 +93,6 @@ def _shl32(a, s):
 
 def _wrap16(v):
     return ((v + 32768) & 65535) - 32768
-
-
-def _wrap32(v):
-    """v truncated to int32 (where JAX casts with astype(int32))."""
-    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
 
 
 def _shr_round(x, s):

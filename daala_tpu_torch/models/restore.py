@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from daala_tpu_torch.device import resolve
+from daala_tpu_torch.models.analysis import wrap32 as _wrap32
 from daala_tpu_torch.ops import dering as D
 from daala_tpu_torch.ops.dering import (DIRECTION_OFFSETS, OD_FILT_BORDER,
                                         _DIV_TABLE, _THRESH_TABLE_Q8)
@@ -89,11 +90,6 @@ _DIR_DY = np.array([[o[0] for o in DIRECTION_OFFSETS[d]]
                     for d in range(8)], np.int64)  # (8, 3)
 _DIR_DX = np.array([[o[1] for o in DIRECTION_OFFSETS[d]]
                     for d in range(8)], np.int64)
-
-
-def _wrap32(v):
-    """int64 v wrapped to int32 (where the reference's int32_t math wraps)."""
-    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
 
 
 def _wrap16(v):

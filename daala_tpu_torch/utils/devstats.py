@@ -20,12 +20,16 @@ and the rows it marked invalid (searched on the host) under COUNTS;
 
 Counters are process-global and cheap (two clock reads per span);
 `reset()` + `snapshot()` bracket a measured region (chip_smoke.py and
-utils/profile.py print them).
+utils/profile.py print them).  Every update holds one lock, so threads
+that encode at once (parallel/mesh.py encode_clips_batched) lose no
+count.  A span sums the host walls of every thread that entered it, so
+with threads a span can exceed the wall clock.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 import numpy as np
@@ -40,27 +44,35 @@ SPANS: dict = {}  # span name -> host wall seconds since reset()
 COUNTS: dict = {}  # counter name -> total since reset()
 # device tensor -> (pinned host copy, event recorded after the copy)
 _PREFETCHED = WeakIdKeyDictionary()
+_LOCK = threading.Lock()  # held by every update of the above
+
+
+def _add(d, key, value):
+    with _LOCK:
+        d[key] = d.get(key, 0) + value
 
 
 def reset():
-    STATS.update(_ZERO)
-    LAUNCHES.clear()
-    SPANS.clear()
-    COUNTS.clear()
+    with _LOCK:
+        STATS.update(_ZERO)
+        LAUNCHES.clear()
+        SPANS.clear()
+        COUNTS.clear()
 
 
 def snapshot():
-    s = dict(STATS)
-    s["launches"] = dict(LAUNCHES)
-    s["builds_s"] = dict(BUILDS)
-    s["spans_s"] = dict(SPANS)
-    s["counts"] = dict(COUNTS)
+    with _LOCK:
+        s = dict(STATS)
+        s["launches"] = dict(LAUNCHES)
+        s["builds_s"] = dict(BUILDS)
+        s["spans_s"] = dict(SPANS)
+        s["counts"] = dict(COUNTS)
     return s
 
 
 def count(name, value):
     """Add value to COUNTS[name]."""
-    COUNTS[name] = COUNTS.get(name, 0) + value
+    _add(COUNTS, name, value)
 
 
 @contextlib.contextmanager
@@ -70,16 +82,17 @@ def span(name):
     try:
         yield
     finally:
-        SPANS[name] = SPANS.get(name, 0.0) + time.perf_counter() - t0
+        _add(SPANS, name, time.perf_counter() - t0)
 
 
 def launch(name):
     """Count one launch of kernel `name` (called by its wrapper)."""
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    _add(LAUNCHES, name, 1)
 
 
 def built(name, seconds):
-    BUILDS[name] = seconds
+    with _LOCK:
+        BUILDS[name] = seconds
 
 
 def upload(array, device):
@@ -87,7 +100,7 @@ def upload(array, device):
     bytes when the device is not the CPU."""
     t = torch.from_numpy(np.ascontiguousarray(array))
     if device.type != "cpu":
-        STATS["h2d_bytes"] += t.numel() * t.element_size()
+        _add(STATS, "h2d_bytes", t.numel() * t.element_size())
         t = t.to(device, non_blocking=False)
     return t
 
@@ -95,7 +108,7 @@ def upload(array, device):
 def dispatch():
     """Count one device dispatch (one analysis call on one plane, or one
     batch of OBMC leaves)."""
-    STATS["dispatches"] += 1
+    _add(STATS, "dispatches", 1)
 
 
 def prefetch(*tensors):
@@ -104,14 +117,18 @@ def prefetch(*tensors):
     fetch() of the same tensor waits for its copy and counts nothing
     more."""
     for t in tensors:
-        if t.device.type == "cpu" or t in _PREFETCHED:
+        if t.device.type == "cpu":
             continue
+        with _LOCK:
+            if t in _PREFETCHED:
+                continue
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t.detach(), non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(t.device))
-        STATS["d2h_bytes"] += host.numel() * host.element_size()
-        _PREFETCHED[t] = (host, done)
+        with _LOCK:
+            STATS["d2h_bytes"] += host.numel() * host.element_size()
+            _PREFETCHED[t] = (host, done)
 
 
 def fetch(t, dtype=torch.int32):
@@ -119,7 +136,10 @@ def fetch(t, dtype=torch.int32):
     device->host bytes (unless prefetch() counted them) and the wall
     time spent waiting for them."""
     t0 = time.perf_counter()
-    hit = _PREFETCHED.pop(t, None) if t.device.type != "cpu" else None
+    hit = None
+    if t.device.type != "cpu":
+        with _LOCK:
+            hit = _PREFETCHED.pop(t, None)
     if hit is not None:
         host, done = hit
         done.synchronize()
@@ -127,7 +147,7 @@ def fetch(t, dtype=torch.int32):
     else:
         a = t.detach().to("cpu", dtype or t.dtype).numpy()
         if t.device.type != "cpu":
-            STATS["d2h_bytes"] += a.nbytes
+            _add(STATS, "d2h_bytes", a.nbytes)
     if t.device.type != "cpu":
-        STATS["fetch_wall_s"] += time.perf_counter() - t0
+        _add(STATS, "fetch_wall_s", time.perf_counter() - t0)
     return a

@@ -74,6 +74,85 @@ def translation_clip(w=W, h=H, nframes=NFRAMES):
     return frames
 
 
+
+def _lowpass(a, k):
+    """Separable box low-pass of width k (reflected edges); a copy of
+    tests/content.py's."""
+    if k <= 1:
+        return a
+    kernel = np.ones(k) / k
+    a = np.apply_along_axis(lambda r: np.convolve(r, kernel, "same"), 0, a)
+    a = np.apply_along_axis(lambda r: np.convolve(r, kernel, "same"), 1, a)
+    return a
+
+
+def _octave_noise(shape, rng, octaves=((3, 60), (9, 45), (27, 35))):
+    """Filtered noise octaves: the 1/f-ish spatial spectrum of natural
+    texture (grass, fabric, foliage) instead of a pure sinusoid."""
+    acc = np.zeros(shape)
+    for k, sigma in octaves:
+        acc += _lowpass(rng.normal(0, sigma, shape), k)
+    return acc
+
+
+def make_natural_clip(w, h, nframes, seed=0, fourcc="420", grain=3.0):
+    """bench.py make_clip("natural") (with seed=3): a copy of
+    tests/content.py make_natural_clip.  Natural-statistics clip:
+    multi-octave textured background with depth layers, a slow
+    non-integer pan (subpel matters), a foreground occluder with
+    independent motion revealing background, luminance flicker, and
+    per-frame film grain."""
+    rng = np.random.default_rng(seed)
+    pad = 96
+    W, H = w + 2 * pad, h + 2 * pad
+    yy, xx = np.mgrid[0:H, 0:W]
+    # Background: smooth illumination + texture octaves.
+    bg = (120 + 40 * np.sin(xx / 171.0) + 25 * np.cos(yy / 133.0)
+          + _octave_noise((H, W), rng))
+    # A second (nearer) layer with stronger texture, moving faster.
+    fgtex = (140 + _octave_noise(
+        (H, W), np.random.default_rng(seed + 1),
+        octaves=((3, 80), (15, 50))))
+    # Foreground occluder mask: a soft-edged blob.
+    oy, ox = np.mgrid[0:h // 2, 0:w // 2]
+    blob = (((oy - h / 4.0) / (h / 4.0)) ** 2
+            + ((ox - w / 4.0) / (w / 4.0)) ** 2) < 0.8
+    frames = []
+    for t in range(nframes):
+        # Non-integer pan rates; layers move at different speeds
+        # (parallax) so occlusion boundaries shift every frame.
+        bx = pad + int(round(1.7 * t))
+        by = pad + int(round(0.9 * t))
+        fx = pad + int(round(3.4 * t))
+        fy = pad + int(round(1.2 * t))
+        img = bg[by:by + h, bx:bx + w].copy()
+        # Luminance flicker (rate-control stressor).
+        img *= 1.0 + 0.02 * np.sin(t / 2.3)
+        # Occluder placement drifts with its own motion.
+        py = (h // 4 + int(round(2.6 * t))) % (h - h // 2)
+        px = (w // 6 + int(round(4.1 * t))) % (w - w // 2)
+        patch = fgtex[fy + py:fy + py + h // 2,
+                      fx + px:fx + px + w // 2]
+        region = img[py:py + h // 2, px:px + w // 2]
+        img[py:py + h // 2, px:px + w // 2] = \
+            np.where(blob, patch, region)
+        # Film grain: white noise, fresh every frame.
+        img = img + rng.normal(0, grain, (h, w))
+        y = np.clip(img, 0, 255).astype(np.uint8)
+        if fourcc == "444":
+            cb = np.clip(128 + 0.25 * (img - 128), 0, 255) \
+                .astype(np.uint8)
+            cr = np.clip(128 - 0.18 * (img - 128), 0, 255) \
+                .astype(np.uint8)
+        else:
+            sub = img[::2, ::2]
+            cb = np.clip(128 + 0.25 * (sub - 128), 0, 255) \
+                .astype(np.uint8)
+            cr = np.clip(128 - 0.18 * (sub - 128), 0, 255) \
+                .astype(np.uint8)
+        frames.append([y, cb, cr])
+    return frames
+
 def device_summary(events, wall_s):
     """Device time of a Chrome trace's events (torch.profiler's export):
     busy ms (union of kernel/copy intervals), its share of wall_s, and

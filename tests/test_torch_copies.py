@@ -55,6 +55,8 @@ COPIES = {
         "Encoder._encode_coefficients",
         # device dering: the port's candidates on `device`
         "Encoder._encode_coefficients_native",
+        # the check's embedded decoder is asked for as the host decoder
+        "Encoder._encoder_check",
         # the Python coefficient path, which ignores the device analysis
         "Encoder._quantize_haar_dc_sb", "Encoder._quantize_haar_dc_level",
         "Encoder._compute_dcts", "Encoder._block_encode",
@@ -118,7 +120,9 @@ def test_device_layer_imports_no_daala_tpu_and_no_jax():
                  "daala_tpu_torch.models.mefield",
                  "daala_tpu_torch.models.restore",
                  "daala_tpu_torch.models.synthesis",
-                 "daala_tpu_torch.native", "daala_tpu_torch.utils.profile"):
+                 "daala_tpu_torch.native", "daala_tpu_torch.utils.profile",
+                 "daala_tpu_torch.parallel", "daala_tpu_torch.parallel.mesh",
+                 "daala_tpu_torch.parallel.dryrun"):
         assert name in mods
     code = ("import importlib, sys\n"
             "for m in %r:\n"

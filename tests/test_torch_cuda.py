@@ -3,8 +3,10 @@ plain versions at the encoder's 1080p shapes, launch-error reporting,
 the device OBMC predictor against the host's, the encoder on the card
 against the host encoder and (in sweep mode) against itself on the
 CPU, the lean tier's PVQ band search and SAD fields on the card
-against the CPU, and the decoder's device back end (dering and
-synthesis) on the card against the CPU and the host decoder.
+against the CPU, the decoder's device back end (dering and synthesis)
+on the card against the CPU and the host decoder, and the parallel
+encodes (parallel/mesh.py) on the card against the CPU and serial
+encodes.
 
 Every test here is marked `cuda` and skips without a card.  This file
 imports no jax, so it also runs on a card's host that has none:
@@ -606,7 +608,7 @@ def test_decode_on_card_matches_host(card):
     devstats.reset()
     for name, dec in (("card", Decoder(info, device=card,
                                        use_device_synthesis=True)),
-                      ("host", Decoder(info))):
+                      ("host", Decoder(info, use_device_synthesis=False))):
         outs[name] = [o for p in pk for o in dec.decode_packet(p)]
     assert len(outs["card"]) == len(outs["host"]) == 2
     for a, b in zip(outs["card"], outs["host"]):
@@ -615,3 +617,46 @@ def test_decode_on_card_matches_host(card):
     snap = devstats.snapshot()
     assert snap["launches"].get("lap_frame", 0) >= 6
     assert snap["spans_s"]["synthesize_frame"] > 0
+
+
+def test_batch_encode_step_on_card_matches_cpu(card):
+    """models/analysis.py's uniform pipeline over a batch on the card:
+    rec, sse and nz equal the CPU's; both kernels launch once each way
+    per frame."""
+    from daala_tpu_torch.parallel import mesh as PM
+    frames = np.random.default_rng(3).integers(0, 256, (2, 256, 384),
+                                               np.uint8)
+    shards = PM.shard_batch(frames, PM.make_mesh(devices=[card]))
+    devstats.reset()
+    rec, sse, nz = PM.batch_encode_step(shards)
+    torch.cuda.synchronize()
+    launches = devstats.snapshot()["launches"]
+    want = PM.batch_encode_step([torch.from_numpy(frames)])
+    assert torch.equal(rec[0].cpu(), want[0][0])
+    assert (sse, nz) == want[1:]
+    assert launches.get("lap_frame") == launches.get("dct_frame") == 4
+
+
+def test_clips_batched_on_card_match_serial(card):
+    """Two small clips on a 2-row mesh of the card, both schedules: the
+    packets of serial encodes on the card and on the CPU."""
+    from daala_tpu_torch.parallel import mesh as PM
+    w, h = 192, 128
+    clips = [textured_clip(w, h, 2, seed=s) for s in (1, 2)]
+    info = headers.Info(pic_width=w, pic_height=h)
+    want = {}
+    for dev in (card, "cpu"):
+        want[str(dev)] = []
+        for frames in clips:
+            enc = Encoder(info, device=dev, quant=18, complexity=7)
+            pk = [bytes(p) for fr in frames for p in enc.encode_frame(fr)]
+            want[str(dev)].append(pk + [bytes(p) for p in enc.flush()])
+    assert want[str(card)] == want["cpu"]
+    mesh = PM.make_mesh(devices=[card, card])
+    for threads in (False, True):
+        devstats.reset()
+        outs = PM.encode_clips_batched(clips, dict(pic_width=w, pic_height=h),
+                                       mesh, quant=18, complexity=7,
+                                       threads=threads)
+        assert [[bytes(p) for p in o] for o in outs] == want["cpu"]
+        assert devstats.snapshot()["launches"].get("dct_frame", 0) > 0

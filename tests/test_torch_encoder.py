@@ -288,14 +288,16 @@ def test_both_tiers_match_the_lean_tier():
 
 
 def test_cuda_device_without_card_raises():
+    """The device tier runs on the card by default (Encoder(info)) and
+    raises where there is none; on the CPU only where the caller asks."""
     info = headers.Info(pic_width=64, pic_height=64)
-    if torch.cuda.is_available():
-        assert Encoder(info, device="cuda").device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError):
-            Encoder(info, device="cuda")
-    with pytest.raises(TypeError):
-        Encoder(info)  # the device is never implied
+    for kw in ({"device": "cuda"}, {}):
+        if torch.cuda.is_available():
+            assert Encoder(info, **kw).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError):
+                Encoder(info, **kw)
+    assert Encoder(info, device="cpu").device == torch.device("cpu")
 
 
 def test_import_leaves_jax_out():

@@ -400,7 +400,7 @@ def _run(frames, w, h, q, lean):
     else:
         e = HostEncoder(info, quant=q, complexity=7)
     e.keyframe_rate = 256
-    d = Decoder(info)
+    d = Decoder(info, use_device_synthesis=False)
     pkts, outs = list(e.flush_headers()), []
     for fr in frames:
         for p in e.encode_frame(fr):
@@ -443,7 +443,8 @@ def test_lean_tier_reference_decoder():
     w, h, q = 96, 64, 18
     frames = content.make_clip(w, h, 4, seed=5)
     pkts, _, _ = _run(frames, w, h, q, True)
-    d = Decoder(H.Info(pic_width=w, pic_height=h))
+    d = Decoder(H.Info(pic_width=w, pic_height=h),
+                use_device_synthesis=False)
     outs = [o for p in pkts[3:] for o in d.decode_packet(p)]
     rd = co.RefDecoder(pkts[:3])
     routs = [fr for p in pkts[3:] for fr in rd.decode_packet(p)]

@@ -74,7 +74,8 @@ def test_decoder_matches_jax_and_host(name, kw, w, h, n, kfr, dec420,
     jdec = JaxDecoder(_info(JH, w, h, dec420))
     jdec.use_device_synthesis = True
     jax_out = _decode(jdec, pkts, native_frame)
-    host = _decode(Decoder(_info(headers, w, h, dec420)), pkts, True)
+    host = _decode(Decoder(_info(headers, w, h, dec420),
+                           use_device_synthesis=False), pkts, True)
     assert len(port) == len(jax_out) == len(host) == n
     for i, (a, b, c) in enumerate(zip(port, jax_out, host)):
         for pli in range(3):
@@ -171,14 +172,20 @@ def test_synthesize_frame_counts_its_work():
 
 
 def test_decoder_device_is_explicit():
+    """The device back end on the card by default; the CPU and the host
+    decoder only where the caller asks for them."""
     info = headers.Info(pic_width=64, pic_height=64)
     with pytest.raises(ValueError):
-        Decoder(info, use_device_synthesis=True)  # no device
-    with pytest.raises(ValueError):
-        Decoder(info, device="cpu")  # a device the host decoder ignores
-    assert Decoder(info).device is None
+        # a device the host decoder ignores
+        Decoder(info, device="cpu", use_device_synthesis=False)
+    host = Decoder(info, use_device_synthesis=False)
+    assert host.device is None and not host.use_device_synthesis
+    assert Decoder(info, device="cpu").device == CPU
     assert Decoder(info, device="cpu",
                    use_device_synthesis=True).device == CPU
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError):
-            Decoder(info, device="cuda", use_device_synthesis=True)
+        for kw in ({}, {"device": "cuda"}, {"use_device_synthesis": True}):
+            with pytest.raises(RuntimeError):
+                Decoder(info, **kw)
+    else:
+        assert Decoder(info).device.type == "cuda"
