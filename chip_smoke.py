@@ -131,11 +131,33 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    32 frames, in 16-frame segments on 2 spawned workers on the card:
    the packets of serial card encodes of each segment, decoded by the
    port's host Decoder (32 frames; luma PSNR printed).
+8a. train/zigzag.py measure_mags over bench.py's two 1080p clips (phase
+   3's translation frames and make_natural_clip with seed 3), luma
+   only, 4 frames each, cropped to 1024x1920, for n = 4, 8, 16, 32, 64,
+   on the card and on the CPU: the mags equal bit for bit and
+   gen_zigzag's tables equal; lap_frame and dct_frame launched once per
+   frame and n (40 each; counts reset just before the card's run).
+   Prints both walls.
+8b. train/vq.py on 2^20 unit vectors of 16 dims (512 clusters with
+   noise, from the seed), 256 entries: one k-means step on the card
+   against _step_np on the same float32 inputs (assignments equal on
+   >= 99.99% of rows, rms within 1e-5 relative, codebook within 1e-4),
+   then 20 iterations of train() on the card, twice: rms falls and the
+   two runs are identical.  Prints the rms history, the walls and the
+   device time of a step from a torch.profiler trace.
+8c. train/gain.py search, (n 4, filt 4) and (n 8, filt 8), 400 Adam
+   steps, on the card and on the CPU: equal polished integer
+   parameters, float_cg within 1e-4 dB; both walls printed.
+8d. utils/sweep_quality.py's device_pvq on the natural class, seed 0,
+   quants 12, 25, 40, 60, at 320x192 with 2 frames on the card (BD-rate
+   and time ratio printed); the candidate's packets at quant 25 equal
+   on the card and on the CPU.
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
    obmc_leaf_cells from phase 4b) and, beside them, its launches in
-   phase 6's decode ("decode_launches") and in phases 7a-7b (both
-   schedules; "batch_launches"), error, times and bound; then, as the
+   phase 6's decode ("decode_launches"), in phases 7a-7b (both
+   schedules; "batch_launches") and in phase 8a ("train_launches"),
+   error, times and bound; then, as the
    last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
 
@@ -324,13 +346,15 @@ def batch_ms(torch, fn):
     return statistics.median(out)
 
 
-def trace_ms(torch, fn, names, calls=10, tries=3, cats=("kernel",)):
+def trace_ms(torch, fn, names, calls=10, tries=3, cats=("kernel",),
+             flush=True, detail=None):
     """Device time per call of fn from a torch.profiler trace of `calls`
-    calls, each after flush_l2: for each device event of a category in
-    `cats` whose name holds one of `names`, its mean duration times its
-    launches per call.  Returns (ms, events seen, calls); a trace that
-    shows none of them is taken again, up to `tries` times, and then ms
-    is None."""
+    calls, each after flush_l2 (unless flush is False): for each device
+    event of a category in `cats` whose name holds one of `names`, its
+    mean duration times its launches per call.  Returns (ms, events
+    seen, calls); a trace that shows none of them is taken again, up to
+    `tries` times, and then ms is None.  A dict `detail` receives each
+    event name's share of ms."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -340,7 +364,8 @@ def trace_ms(torch, fn, names, calls=10, tries=3, cats=("kernel",)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                flush_l2(torch)
+                if flush:
+                    flush_l2(torch)
                 fn()
             torch.cuda.synchronize()
         prof.export_chrome_trace(path)
@@ -353,9 +378,11 @@ def trace_ms(torch, fn, names, calls=10, tries=3, cats=("kernel",)):
             if e.get("cat") in cats and any(n in name for n in names):
                 durs.setdefault(name, []).append(e["dur"])
         if durs:
-            ms = sum(statistics.mean(d) / 1e3 * max(1, round(len(d) / calls))
-                     for d in durs.values())
-            return ms, sum(map(len, durs.values())), calls
+            per = {k: statistics.mean(d) / 1e3 * max(1, round(len(d) / calls))
+                   for k, d in durs.items()}
+            if detail is not None:
+                detail.update(per)
+            return sum(per.values()), sum(map(len, durs.values())), calls
     return None, 0, calls
 
 
@@ -1513,9 +1540,181 @@ def phase_segments(torch, dev):
              [i for i, (a, b) in enumerate(zip(whole, pkts)) if a != b]))
 
 
-def kernel_line(kern, launches, decode_launches, batch_launches):
+def phase_train_zigzag(torch, dev):
+    """Phase 8a: train.zigzag.measure_mags over bench.py's two 1080p clips
+    (luma, 4 frames each, cropped to 1024x1920) for n = 4..64 on the
+    card and on the CPU: equal mags bit for bit, equal gen_zigzag
+    tables; one lap_frame and one dct_frame launch per frame and n.
+    Returns the card run's launches."""
+    from daala_tpu_torch.train import zigzag as ZZ
+    from daala_tpu_torch.utils import devstats
+    from daala_tpu_torch.utils.profile import (H, NFRAMES, W,
+                                               make_natural_clip,
+                                               translation_clip)
+    frames = [f[0] for f in translation_clip()] + [
+        f[0] for f in make_natural_clip(W, H, NFRAMES, seed=3)]
+    sizes = (4, 8, 16, 32, 64)
+    ZZ.measure_mags(frames[:1], 8, dev)  # warm-up
+    torch.cuda.synchronize()
+    devstats.reset()
+    t0 = time.perf_counter()
+    card = {n: ZZ.measure_mags(frames, n, dev) for n in sizes}
+    card_s = time.perf_counter() - t0
+    snap = devstats.snapshot()
+    t0 = time.perf_counter()
+    cpu = {n: ZZ.measure_mags(frames, n, "cpu") for n in sizes}
+    cpu_s = time.perf_counter() - t0
+    for n in sizes:
+        if not np.array_equal(card[n], cpu[n]):
+            raise AssertionError("measure_mags n=%d: card and cpu differ "
+                                 "(max |diff| %g)" % (
+                                     n, np.abs(card[n] - cpu[n]).max()))
+        if not np.array_equal(ZZ.gen_zigzag(card[n]),
+                              ZZ.gen_zigzag(cpu[n])):
+            raise AssertionError("gen_zigzag n=%d: tables differ" % n)
+    want = len(frames) * len(sizes)
+    for name in ("lap_frame", "dct_frame"):
+        if snap["launches"].get(name, 0) != want:
+            raise AssertionError("measure_mags: %s launched %s times, not %d"
+                                 % (name, snap["launches"].get(name), want))
+    print("train zigzag: %d frames (%dx%d luma of the translation and "
+          "natural clips), n = %s: mags equal bit for bit on %s and cpu, "
+          "gen_zigzag tables equal; %s wall %.4f s, cpu %.4f s; launches %s; "
+          "h2d %d bytes, d2h %d bytes" % (
+              len(frames), H // 64 * 64, W // 64 * 64, list(sizes), dev, dev,
+              card_s, cpu_s,
+              snap["launches"], snap["h2d_bytes"], snap["d2h_bytes"]))
+    return snap["launches"]
+
+
+def vq_data(rng, rows=1 << 20, dims=16, clusters=512, noise=0.3):
+    """(rows, dims) float64 unit vectors: `clusters` random centres, each
+    row one of them (drawn uniformly) plus Gaussian noise."""
+    from daala_tpu_torch.train import vq
+    centres = rng.normal(size=(clusters, dims))
+    x = centres[rng.integers(0, clusters, rows)]
+    x += noise * rng.normal(size=(rows, dims))
+    return vq._normalize(x)
+
+
+def phase_train_vq(torch, dev):
+    """Phase 8b: train.vq on 2^20 unit vectors of 16 dims (512 clusters
+    with noise, from the seed), 256 entries, on the card.  One step
+    against _step_np on the same float32 inputs (in float64): assignments
+    equal on >= 99.99% of rows, rms within 1e-5 relative, codebook
+    within 1e-4.  Then 20 iterations of train(), twice: rms falls, the
+    two codebooks and histories are identical.  Prints the device time
+    of a step from a torch.profiler trace."""
+    from daala_tpu_torch.train import vq
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the k-means step needs "
+                             "full float32")
+    rng = np.random.default_rng(SEED)
+    data = vq_data(rng)
+    entries, iters = 256, 20
+    cb = vq._normalize(data[rng.integers(0, len(data), entries)]
+                       + 0.01 * rng.integers(-1, 2, (entries, 16)))
+    d32, c32 = data.astype(np.float32), cb.astype(np.float32)
+    step = vq._make_step_torch(True, dev)
+    td, tc = torch.from_numpy(d32).to(dev), torch.from_numpy(c32).to(dev)
+    got_cb, got_rms, got_best = step(td, tc)
+    got_cb, got_rms = got_cb.cpu().numpy(), float(got_rms)
+    got_best = got_best.cpu().numpy()
+    d64, c64 = d32.astype(np.float64), c32.astype(np.float64)
+    want_cb, want_rms = vq._step_np(d64, c64, True)
+    want_best = np.argmax(np.abs(d64 @ c64.T), axis=1)
+    agree = float(np.mean(got_best == want_best))
+    cb_err = float(np.abs(got_cb - want_cb).max())
+    rms_rel = abs(got_rms - want_rms) / want_rms
+    print("train vq: one step, %d x 16 float32, %d entries: assignments "
+          "equal on %.6f of rows (%d differ), rms %.8f vs numpy %.8f (rel "
+          "%.3g), codebook max |diff| %.3g" % (
+              len(data), entries, agree, int((got_best != want_best).sum()),
+              got_rms, want_rms, rms_rel, cb_err))
+    if agree < 0.9999 or rms_rel > 1e-5 or cb_err > 1e-4:
+        raise AssertionError("the k-means step on %s disagrees with numpy"
+                             % dev)
+    per_kernel = {}
+    ms, events, calls = trace_ms(torch, lambda: step(td, tc), ("",),
+                                 calls=10, flush=False, detail=per_kernel)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]
+    print("train vq: a step's largest kernels (ms per step): %s" % "; ".join(
+        "%s %.4f" % (k[:60], v) for k, v in top))
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(vq.train(data, entries, iters, exclude_pvq=True,
+                             seed=SEED, device=dev))
+        runs[-1] += (time.perf_counter() - t0,)
+    (cb1, hist1, s1), (cb2, hist2, s2) = runs
+    same = np.array_equal(cb1, cb2) and hist1 == hist2
+    print("train vq: %d iterations on %s: rms %s; walls %.4f, %.4f s (with "
+          "the upload); device time per step %s ms (%d kernel events in %d "
+          "steps, torch.profiler); two card runs identical: %s" % (
+              iters, dev, ["%.6f" % r for r in hist1], s1, s2,
+              "%.4f" % ms if ms is not None else "not measured", events,
+              calls, same))
+    if not hist1[-1] < hist1[0]:
+        raise AssertionError("vq rms did not fall: %s" % hist1)
+    if not same:
+        raise AssertionError("two card runs of vq.train differ")
+
+
+def phase_train_gain(torch, dev):
+    """Phase 8c: train.gain.search, (n 4, filt 4) and (n 8, filt 8), 400
+    Adam steps, on the card and on the CPU: equal polished integer
+    parameters, float_cg within 1e-4 dB.  Walls as information (tiny
+    linear algebra, launch-bound)."""
+    from daala_tpu_torch.train import gain
+    for n, filt in ((4, 4), (8, 8)):
+        t0 = time.perf_counter()
+        best, cg, fcg = gain.search(n, filt, steps=400, device=dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cbest, ccg, cfcg = gain.search(n, filt, steps=400, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        print("train gain: n %d filt %d, 400 steps: %s %s cg %.6f dB (float "
+              "%.6f), cpu %s cg %.6f (float %.6f); walls %s %.3f s, cpu %.3f "
+              "s [information only]" % (n, filt, dev, best, cg, fcg, cbest,
+                                        ccg, cfcg, dev, card_s, cpu_s))
+        if best != cbest or abs(fcg - cfcg) > 1e-4:
+            raise AssertionError("gain.search n=%d filt=%d: card and cpu "
+                                 "differ" % (n, filt))
+
+
+def phase_sweep_quality(torch, dev):
+    """Phase 8d: utils/sweep_quality.py's device_pvq on the natural class,
+    seed 0, quants 12, 25, 40, 60, at 320x192 with 2 frames on the card
+    (BD-rate and time ratio as information); the candidate's packets at
+    quant 25 equal on the card and on the CPU."""
+    from daala_tpu_torch.utils import sweep_quality as SQ
+    w, h, nframes = 320, 192, 2
+    t0 = time.perf_counter()
+    row, = SQ.sweep_bd("device_pvq", ["natural"], [0], [12, 25, 40, 60], w,
+                       h, nframes, device=dev)
+    secs = time.perf_counter() - t0
+    frames = SQ.make_natural_clip(w, h, nframes, seed=0)
+    _, c_kw, _, c_cx = SQ.CONFIGS["device_pvq"]
+    card, _ = SQ.encode_clip(frames, w, h, 25, c_kw, c_cx, dev)
+    cpu, _ = SQ.encode_clip(frames, w, h, 25, c_kw, c_cx, "cpu")
+    print("sweep quality: device_pvq, natural, seed 0, %dx%d, %d frames on "
+          "%s: BD-rate %.3f%%, time vs anchor %.3f (%.1f s) [information "
+          "only]; quant 25 candidate %d bytes on %s, %d on cpu" % (
+              w, h, nframes, dev, row["bd_rate_mean_pct"],
+              row["time_vs_anchor_mean"], secs, sum(map(len, card)), dev,
+              sum(map(len, cpu))))
+    if not np.isfinite(row["bd_rate_mean_pct"]):
+        raise AssertionError("device_pvq BD-rate is not finite")
+    if card != cpu:
+        raise AssertionError("device_pvq quant 25: card packets differ from "
+                             "the cpu run's")
+
+
+def kernel_line(kern, launches, decode_launches, batch_launches,
+                train_launches):
     """The kernels line: each kernel's launches on the encoder's path, in
-    the decode and in the batched phases 7a-7b, and its numbers summed
+    the decode, in the batched phases 7a-7b and in the training
+    statistics (phase 8a), and its numbers summed
     over phase 2's and 2b's timed
     variants (each shape, size, direction or bit depth once):
     per-call medians through the wrapper ("ms"), the kernels' device time
@@ -1541,6 +1740,7 @@ def kernel_line(kern, launches, decode_launches, batch_launches):
             "launches": launches.get(name),
             "decode_launches": decode_launches.get(name, 0),
             "batch_launches": batch_launches.get(name, 0),
+            "train_launches": train_launches.get(name, 0),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -1603,12 +1803,16 @@ def main(argv=None):
     for k, v in run("7b", phase_clips_batched, torch, dev, ref).items():
         batch_launches[k] = batch_launches.get(k, 0) + v
     run("7c", phase_segments, torch, dev)
+    train_launches = run("8a", phase_train_zigzag, torch, dev)
+    run("8b", phase_train_vq, torch, dev)
+    run("8c", phase_train_gain, torch, dev)
+    run("8d", phase_sweep_quality, torch, dev)
     leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:
         raise AssertionError("imported: %s" % leaked)
     print(json.dumps(kernel_line(kern, launches, decode_launches,
-                                 batch_launches)))
+                                 batch_launches, train_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

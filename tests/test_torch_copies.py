@@ -1,7 +1,8 @@
 """The port stands alone: no module of daala_tpu_torch, nor chip_smoke.py,
 imports anything of the JAX package, and the port's copies of the JAX
 package's jax-free host codec (codec/, entropy/, native/, the numpy
-ops/, utils/logging.py and utils/dump.py) equal their originals apart
+ops/, utils/logging.py, utils/dump.py, utils/y4m.py, utils/metrics.py)
+and of its training subsystem (train/) equal their originals apart
 from their import lines and the definitions listed in COPIES, which
 carry the port's device tier where the original has its JAX one.
 
@@ -91,8 +92,23 @@ COPIES = {
     "ops/intrin.py": (),
     "ops/partition.py": ("coding_to_raster",),  # numpy only
     "ops/pvq.py": (),
+    # The training subsystem: the numpy table generators as they are;
+    # the k-means step, the coding-gain search and the zigzag statistics
+    # on a torch device (a card by default) in place of JAX
+    "train/__init__.py": (),
+    "train/basis.py": (),
+    "train/cos_search.py": (),
+    "train/gain.py": ("_const", "_params", "_filter_matrix", "dct_matrix",
+                      "ar_autocorrelation", "coding_gain_1d", "search",
+                      "main"),
+    "train/laplace.py": (),
+    "train/vq.py": ("_make_step_jax", "_make_step_torch", "_segment_sums",
+                    "train", "main"),
+    "train/zigzag.py": ("measure_mags", "read_luma", "main"),
     "utils/dump.py": (),
     "utils/logging.py": (),
+    "utils/metrics.py": (),
+    "utils/y4m.py": (),
 }
 NATIVE_SOURCES = ["ec_core.cc", "bs_enc.inc", "frame_dec.inc",
                   "frame_enc.inc", "lifting_gen.inc", "me_enc.inc"]
@@ -122,7 +138,10 @@ def test_device_layer_imports_no_daala_tpu_and_no_jax():
                  "daala_tpu_torch.models.synthesis",
                  "daala_tpu_torch.native", "daala_tpu_torch.utils.profile",
                  "daala_tpu_torch.parallel", "daala_tpu_torch.parallel.mesh",
-                 "daala_tpu_torch.parallel.dryrun"):
+                 "daala_tpu_torch.parallel.dryrun", "daala_tpu_torch.train",
+                 "daala_tpu_torch.train.vq", "daala_tpu_torch.train.gain",
+                 "daala_tpu_torch.train.zigzag",
+                 "daala_tpu_torch.utils.sweep_quality"):
         assert name in mods
     code = ("import importlib, sys\n"
             "for m in %r:\n"

@@ -4,9 +4,11 @@ the device OBMC predictor against the host's, the encoder on the card
 against the host encoder and (in sweep mode) against itself on the
 CPU, the lean tier's PVQ band search and SAD fields on the card
 against the CPU, the decoder's device back end (dering and synthesis)
-on the card against the CPU and the host decoder, and the parallel
+on the card against the CPU and the host decoder, the parallel
 encodes (parallel/mesh.py) on the card against the CPU and serial
-encodes.
+encodes, and the training subsystem (train/: the zigzag statistics,
+the coding-gain search, the k-means codebook) on the card against the
+CPU.
 
 Every test here is marked `cuda` and skips without a card.  This file
 imports no jax, so it also runs on a card's host that has none:
@@ -660,3 +662,42 @@ def test_clips_batched_on_card_match_serial(card):
                                        threads=threads)
         assert [[bytes(p) for p in o] for o in outs] == want["cpu"]
         assert devstats.snapshot()["launches"].get("dct_frame", 0) > 0
+
+
+def test_measure_mags_on_card_matches_cpu(card):
+    """train.zigzag.measure_mags on the card: the CPU's mags bit for bit
+    at every n, one lap_frame and one dct_frame launch per frame."""
+    from daala_tpu_torch.train import zigzag as ZZ
+    rng = np.random.default_rng(8)
+    frames = [rng.integers(0, 256, (200, 330), np.uint8) for _ in range(2)]
+    for n in (4, 8, 16, 32, 64):
+        devstats.reset()
+        got = ZZ.measure_mags(frames, n, card)
+        launches = devstats.snapshot()["launches"]
+        np.testing.assert_array_equal(got, ZZ.measure_mags(frames, n, "cpu"))
+        assert launches.get("lap_frame") == launches.get("dct_frame") == 2
+
+
+def test_gain_search_on_card_matches_cpu(card):
+    """train.gain.search on the card: the CPU's integer parameters, its
+    float optimum within 1e-4 dB."""
+    from daala_tpu_torch.train import gain
+    for n, filt in ((4, 4), (8, 8)):
+        best, cg, fcg = gain.search(n, filt, steps=100, device=card)
+        cbest, ccg, cfcg = gain.search(n, filt, steps=100, device="cpu")
+        assert best == cbest and cg == ccg
+        assert abs(fcg - cfcg) <= 1e-4
+
+
+def test_vq_train_on_card_is_deterministic(card):
+    """train.vq.train on the card: two runs identical, within 1e-5 of the
+    CPU's history."""
+    from daala_tpu_torch.train import vq
+    rng = np.random.default_rng(9)
+    data = rng.normal(size=(64, 16))[rng.integers(0, 64, 20000)]
+    data += 0.2 * rng.normal(size=data.shape)
+    a = vq.train(data, 32, 6, device=card)
+    b = vq.train(data, 32, 6, device=card)
+    assert a[1] == b[1] and np.array_equal(a[0], b[0])
+    np.testing.assert_allclose(a[1], vq.train(data, 32, 6, device="cpu")[1],
+                               rtol=0, atol=1e-5)
