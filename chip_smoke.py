@@ -152,11 +152,33 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    quants 12, 25, 40, 60, at 320x192 with 2 frames on the card (BD-rate
    and time ratio printed); the candidate's packets at quant 25 equal
    on the card and on the CPU.
+9. The mesh's sp axis (parallel/sharding.py) on a 2 x 2 mesh of the
+   one card, make_mesh(devices=["cuda:0"] * 4, dp=2): (a) phase 3's
+   clip, keyframe + 1 P frame, phase 3's preset, encoder check on, with
+   the analysis tier sharded ("dp", "sp") (the encoder's device_put_fn:
+   each plane in 4 tiles cut on superblocks, 9 + 8 rows by 15 + 15
+   columns at 1080p), byte-identical to the same two frames unsharded on
+   the card (and to phase 3's first two packets); (b) those packets
+   decoded with the synthesis sharded likewise: the host decoder's
+   frames; (c) every tile of a 1080p luma and chroma plane: lap_frame
+   forward and inverse from the tile's origin against its plain version
+   on the same tile and against the plane's kernel, dct_frame at every
+   size on the tile's interior against its plain version, bit for bit
+   (the first tile's lap times with a halo of 2 and of 4 beside
+   their bounds printed); (d) encode_clips_batched
+   of phase 7b's two clips (2 frames each) on the (2, 2) mesh, each
+   clip's planes over its row's 2 columns, in both schedules: the
+   serial card encodes; (e) batch_encode_step of phase 7a's batch over
+   the (2, 2) mesh: phase 7a's rec, sse and nz; (f) only where torch
+   sees 2 or more cards, (a) over distinct cards; otherwise a line says
+   that it did not run.  Prints the sharded and unsharded walls per
+   frame, the halo bytes per frame and the launches, as information.
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
    obmc_leaf_cells from phase 4b) and, beside them, its launches in
    phase 6's decode ("decode_launches"), in phases 7a-7b (both
-   schedules; "batch_launches") and in phase 8a ("train_launches"),
+   schedules; "batch_launches"), in phase 8a ("train_launches") and in
+   phase 9's sharded paths ("shard_launches"),
    error, times and bound; then, as the
    last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
@@ -662,8 +684,25 @@ def build_other(root, tag):
                   % (tag, mod.NAME, regs, stack, st, ld, fn))
         lib = ctypes.CDLL(so)
         fn = getattr(lib, mod.NAME)
-        fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
-        return mod.NAME, (lib, global_names(src))
+        with open(src) as f:
+            text = f.read()
+        decl = text[text.index('extern "C" int %s(' % mod.NAME):]
+        nargs = decl[:decl.index(")")].count(",") + 1
+        if nargs == len(mod._ARGTYPES):
+            fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
+            return mod.NAME, (lib, global_names(src))
+        # A lap_frame.cu from before the tile arguments (origin, plane):
+        # whole planes only, which is what phase 2 gives it.
+        fn.argtypes = mod._ARGTYPES[:6] + mod._ARGTYPES[-2:]
+        fn.restype = ctypes.c_int
+
+        class Untiled:
+            def lap_frame(self, src, dst, h, w, sb_x, sb_y, oy, ox, ph, pw,
+                          forward, stream):
+                if (oy, ox, ph, pw) != (0, 0, h, w):
+                    raise ValueError("the parent's lap_frame takes no tile")
+                return fn(src, dst, h, w, sb_x, sb_y, forward, stream)
+        return mod.NAME, (Untiled(), global_names(src))
 
     with ThreadPoolExecutor(2) as ex:
         return dict(ex.map(one, (lap_kernels, dct_kernels)))
@@ -1283,13 +1322,15 @@ def phase_lean_small(torch, dev, sweep=False):
     agree = []
 
     def both(st, info, quantizer, d_planes, md_planes, lam,
-             is_keyframe=False, use_masking=True):
-        cpu = real(st, info, quantizer, [p.cpu() for p in d_planes],
+             is_keyframe=False, use_masking=True, device_put_fn=None):
+        host = torch.device("cpu")
+        cpu = real(st, info, quantizer, [p.to(host) for p in d_planes],
                    None if md_planes is None
-                   else [p.cpu() for p in md_planes], lam,
+                   else [p.to(host) for p in md_planes], lam,
                    is_keyframe=is_keyframe, use_masking=use_masking)()
         finish = real(st, info, quantizer, d_planes, md_planes, lam,
-                      is_keyframe=is_keyframe, use_masking=use_masking)
+                      is_keyframe=is_keyframe, use_masking=use_masking,
+                      device_put_fn=device_put_fn)
 
         def done():
             got = finish()
@@ -1363,13 +1404,13 @@ def _watch_directions(calls):
     from daala_tpu_torch.ops.cuda import dct_kernels as D, lap_kernels as LK
     real_lap, real_dct = LK.lap_frame_cuda, D.dct_frame_cuda
 
-    def lap(frame, sb_x=64, sb_y=64, forward=True):
+    def lap(frame, sb_x=64, sb_y=64, forward=True, *tile):
         calls.append((LK.NAME, bool(forward)))
-        return real_lap(frame, sb_x, sb_y, forward)
+        return real_lap(frame, sb_x, sb_y, forward, *tile)
 
-    def dct(frame, n, forward=True):
+    def dct(frame, n, forward=True, *tile):
         calls.append((D.NAME, bool(forward)))
-        return real_dct(frame, n, forward)
+        return real_dct(frame, n, forward, *tile)
     LK.lap_frame_cuda, D.dct_frame_cuda = lap, dct
 
     def restore():
@@ -1388,7 +1429,7 @@ def phase_batch_step(torch, dev):
                                                   np.uint8)
     mesh = PM.make_mesh()
     shards = PM.shard_batch(frames, mesh)
-    PM.batch_encode_step([s[:1] for s in shards])  # warm-up
+    PM.batch_encode_step(torch.from_numpy(frames[:1]).to(dev))  # warm-up
     torch.cuda.synchronize()
     calls = []
     restore = _watch_directions(calls)
@@ -1402,10 +1443,10 @@ def phase_batch_step(torch, dev):
     finally:
         restore()
     t0 = time.perf_counter()
-    want = PM.batch_encode_step([torch.from_numpy(frames)])
+    want = PM.batch_encode_step(torch.from_numpy(frames))
     cpu_s = time.perf_counter() - t0
-    got = torch.cat([r.cpu() for r in rec])
-    if not (torch.equal(got, want[0][0]) and (sse, nz) == want[1:]):
+    got = torch.from_numpy(rec.gather())
+    if not (torch.equal(got, want[0]) and (sse, nz) == want[1:]):
         raise AssertionError("batch_encode_step differs between %s and cpu "
                              "(sse %d / %d, nz %d / %d)"
                              % (dev, sse, want[1], nz, want[2]))
@@ -1423,7 +1464,8 @@ def phase_batch_step(torch, dev):
         if snap["launches"].get(name, 0) != 2 * len(frames):
             raise AssertionError("%s launched %s times, not %d" % (
                 name, snap["launches"].get(name), 2 * len(frames)))
-    return snap["launches"]
+    return snap["launches"], dict(frames=frames, rec=got.numpy(), sse=sse,
+                                  nz=nz, wall=card_s)
 
 
 def phase_clips_batched(torch, dev, ref):
@@ -1494,7 +1536,7 @@ def phase_clips_batched(torch, dev, ref):
           "%.3f (round-robin / threads) [information only]"
           % (sum(map(len, serial[0])), sum(map(len, serial[1])), cpu_s, rr,
              th, rr / th))
-    return total
+    return total, dict(clips=clips, serial=serial)
 
 
 def phase_segments(torch, dev):
@@ -1710,11 +1752,223 @@ def phase_sweep_quality(torch, dev):
                              "the cpu run's")
 
 
+def _same_frames(got, want, what):
+    if len(got) != len(want):
+        raise AssertionError("%s: %d frames, not %d" % (what, len(got),
+                                                        len(want)))
+    for i, (a, b) in enumerate(zip(got, want)):
+        for pli in range(3):
+            if not np.array_equal(a[pli], b[pli]):
+                raise AssertionError("%s: frame %d plane %d differs"
+                                     % (what, i, pli))
+
+
+def _add_launches(total, snap):
+    for k, v in snap["launches"].items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_sharded(torch, dev, ref, batch_ref, clips_ref):
+    """Phase 9: the mesh's sp axis on a 2 x 2 mesh of the card (see the
+    module docstring); returns the launches of its sharded paths."""
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.codec.decoder import Decoder
+    from daala_tpu_torch.codec.encoder import Encoder
+    from daala_tpu_torch.ops.cuda import dct_kernels as D, lap_kernels as LK
+    from daala_tpu_torch.parallel import mesh as PM
+    from daala_tpu_torch.parallel.sharding import Sharding, named_put, put
+    from daala_tpu_torch.utils import devstats
+    from daala_tpu_torch.utils.profile import (ENCODER_KW as kw, H, W,
+                                               translation_clip)
+    info = headers.Info(pic_width=W, pic_height=H)
+    mesh = PM.make_mesh(devices=[str(dev)] * 4, dp=2)
+    hook = named_put(mesh, ("dp", "sp"))
+    frames = translation_clip()[:2]
+    total = {}
+
+    # 9a: the keyframe and one P frame, the analysis tier sharded.
+    plain_pk, plain_s = encode(Encoder(info, device=dev, **kw), frames)
+    if plain_pk != ref["packets"][:2]:
+        raise AssertionError("the unsharded 2-frame encode differs from "
+                             "phase 3's first packets")
+
+    def sharded_encode(h):
+        enc = Encoder(info, device=dev, **kw)
+        enc.device_put_fn = h
+        devstats.reset()
+        pk, secs = encode(enc, frames)
+        torch.cuda.synchronize()
+        return pk, secs, devstats.snapshot()
+
+    pk, enc_s, snap = sharded_encode(hook)
+    _add_launches(total, snap)
+    if pk != plain_pk:
+        raise AssertionError("9a: sharded packets differ from the unsharded "
+                             "card encode's (%d vs %d bytes)"
+                             % (sum(map(len, pk)), sum(map(len, plain_pk))))
+    for name in ("lap_frame", "dct_frame"):
+        if snap["launches"].get(name, 0) <= 0:
+            raise AssertionError("9a: %s never launched" % name)
+    print("sharded 9a: keyframe + P frame at %dx%d on a (2, 2) mesh of %s, "
+          "analysis tier sharded (dp, sp): %d bytes, byte-identical to the "
+          "unsharded card encode (= phase 3's first 2 packets), encoder "
+          "check passed; wall per frame sharded %.4f s, unsharded %.4f s "
+          "[information only]; halo bytes per frame %d (the analysis takes "
+          "its halos with the upload); h2d %d, d2h %d bytes; launches %s"
+          % (W, H, dev, sum(map(len, pk)), enc_s / 2, plain_s / 2,
+             snap["counts"].get("halo_bytes", 0) // 2, snap["h2d_bytes"],
+             snap["d2h_bytes"], snap["launches"]))
+
+    # 9b: those packets through the sharded synthesis.
+    host = Decoder(info, use_device_synthesis=False)
+    want = [f for p in pk for f in host.decode_packet(p)]
+    dec = Decoder(info, device=dev)
+    dec.device_put_fn = hook
+    devstats.reset()
+    t0 = time.perf_counter()
+    got = [f for p in pk for f in dec.decode_packet(p)]
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    snap = devstats.snapshot()
+    _add_launches(total, snap)
+    _same_frames(got, want, "9b: the sharded decode against the host's")
+    for name in ("lap_frame", "dct_frame"):
+        if snap["launches"].get(name, 0) <= 0:
+            raise AssertionError("9b: %s never launched" % name)
+    print("sharded 9b: the sharded synthesis decode gives the host "
+          "decoder's frames; wall per frame %.4f s; halo bytes per frame "
+          "%d; synthesize_frame span %.4f s; launches %s"
+          % (dec_s / 2, snap["counts"].get("halo_bytes", 0) // 2,
+             snap["spans_s"].get("synthesize_frame", 0.0),
+             snap["launches"]))
+
+    # 9c: every tile's kernels against their plain versions (not counted).
+    rng = np.random.default_rng(SEED)
+    ntiles = 0
+    for (h, w), sb, sizes in (((1088, 1920), 64, (4, 8, 16, 32, 64)),
+                              ((544, 960), 32, (4, 8, 16, 32))):
+        x = rng.integers(-(1 << 14), 1 << 14, (h, w)).astype(np.int32)
+        sp = put(x, Sharding(mesh, ("dp", "sp")), halo=2, unit=sb)
+        for fwd in (True, False):
+            whole = LK.lap_frame_cuda(torch.from_numpy(x).to(dev), sb, sb,
+                                      fwd).cpu().numpy()
+            for t in sp.tiles:
+                k = LK.lap_frame_cuda(t.data, sb, sb, fwd, t.origin, t.plane)
+                if not torch.equal(k, LK.lap_frame_plain(
+                        t.data, sb, sb, fwd, t.origin, t.plane)):
+                    raise AssertionError("9c: lap_frame differs from its "
+                                         "plain version on the tile at %s"
+                                         % (t.start,))
+                if not np.array_equal(t.crop(k).cpu().numpy(),
+                                      whole[t.slices()]):
+                    raise AssertionError("9c: lap_frame on the tile at %s "
+                                         "differs from the plane's"
+                                         % (t.start,))
+                inner = t.crop()
+                for n in sizes:
+                    if not torch.equal(
+                            D.dct_frame_cuda(inner, n, fwd, t.start),
+                            D.dct_frame_plain(inner, n, fwd)):
+                        raise AssertionError("9c: dct_frame n=%d differs on "
+                                             "the tile at %s" % (n, t.start))
+                ntiles += 1
+        # The first tile's forward filter as the sharded path cuts it (a
+        # halo of 2: a width of 2 mod 4, 4-byte copies) and with a halo of
+        # 4 (16-byte copies), the rejected alternative.
+        times = []
+        for halo in (2, 4):
+            t = put(x, Sharding(mesh, ("dp", "sp")), halo=halo,
+                    unit=sb).tiles[0]
+
+            def fn(t=t):
+                return LK.lap_frame_cuda(t.data, sb, sb, True, t.origin,
+                                         t.plane)
+            times.append((halo, "x".join(map(str, t.data.shape)),
+                          batch_ms(torch, fn),
+                          trace_ms(torch, fn, LK.KERNELS)[0],
+                          bound(*lap_work(*t.data.shape, sb, True))))
+        print("sharded 9c: %dx%d in %d tiles (%s); lap_frame forward on the "
+              "first tile %s [information only]"
+              % (h, w, len(sp.tiles), [tuple(t.data.shape) for t in sp.tiles],
+                 "; ".join("halo %d, %s: wrapper %.4f ms, device %s ms, bound "
+                           "%.5f ms (%s)" % (hl, shape, ms,
+                                             "%.5f" % d if d else "none",
+                                             b[0], b[1])
+                           for hl, shape, ms, d, b in times)))
+    torch.cuda.synchronize()
+    print("sharded 9c: lap_frame forward and inverse and dct_frame at every "
+          "size on each of %d tile passes equal their plain versions bit for "
+          "bit, and the tiles' lap_frame the plane's" % ntiles)
+
+    # 9d: two 1080p clips on the (2, 2) mesh, each over its row's columns.
+    clips = [c[:2] for c in clips_ref["clips"]]
+    serial = [c[:2] for c in clips_ref["serial"]]
+    ekw = {k: v for k, v in kw.items() if k not in ("quant", "complexity")}
+    walls = {}
+    for threads in (False, True):
+        devstats.reset()
+        t0 = time.perf_counter()
+        outs = PM.encode_clips_batched(
+            clips, dict(pic_width=W, pic_height=H), mesh, quant=kw["quant"],
+            complexity=kw["complexity"], enc_kwargs=ekw, threads=threads)
+        torch.cuda.synchronize()
+        walls[threads] = time.perf_counter() - t0
+        snap = devstats.snapshot()
+        _add_launches(total, snap)
+        for ci in range(2):
+            if [bytes(p) for p in outs[ci]] != serial[ci]:
+                raise AssertionError("9d: clip %d (threads=%s) differs from "
+                                     "its serial card encode" % (ci, threads))
+    print("sharded 9d: encode_clips_batched of 2 clips x 2 frames at %dx%d "
+          "on the (2, 2) mesh (each clip over its row's 2 columns) equal to "
+          "serial card encodes in both schedules; walls round-robin %.2f s, "
+          "threads %.2f s [information only]" % (W, H, walls[False],
+                                                 walls[True]))
+
+    # 9e: the uniform pipeline's batch over the 2 x 2 mesh.
+    devstats.reset()
+    t0 = time.perf_counter()
+    rec, sse, nz = PM.batch_encode_step(
+        PM.shard_batch(batch_ref["frames"], mesh))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    snap = devstats.snapshot()
+    _add_launches(total, snap)
+    if not (np.array_equal(rec.gather(), batch_ref["rec"])
+            and (sse, nz) == (batch_ref["sse"], batch_ref["nz"])):
+        raise AssertionError("9e: batch_encode_step over the (2, 2) mesh "
+                             "differs from one device's")
+    nb = len(batch_ref["frames"])
+    print("sharded 9e: batch_encode_step of %s over the (2, 2) mesh equal to "
+          "one device's (sse %d, nz %d); wall %.4f s, one device %.4f s "
+          "[information only]; halo bytes per frame %d; launches %s"
+          % (batch_ref["frames"].shape, sse, nz, step_s, batch_ref["wall"],
+             snap["counts"].get("halo_bytes", 0) // nb, snap["launches"]))
+
+    # 9f: across cards, only where there are several.
+    n = torch.cuda.device_count()
+    if n >= 2:
+        cards = ["cuda:%d" % i for i in range(min(n, 4))]
+        cross = named_put(PM.make_mesh(devices=cards), ("dp", "sp"))
+        pk2, secs, snap = sharded_encode(cross)
+        if pk2 != plain_pk:
+            raise AssertionError("9f: packets sharded over %s differ" % cards)
+        print("sharded 9f: 9a over %s: byte-identical; wall per frame %.4f s"
+              % (cards, secs / 2))
+    else:
+        print("sharded 9f: did not run: torch sees %d CUDA device; the "
+              "cross-card leg needs 2 or more [not a pass]" % n)
+    print("sharded: launches of 9a, 9b, 9d and 9e %s" % total)
+    return total
+
+
 def kernel_line(kern, launches, decode_launches, batch_launches,
-                train_launches):
+                train_launches, shard_launches):
     """The kernels line: each kernel's launches on the encoder's path, in
-    the decode, in the batched phases 7a-7b and in the training
-    statistics (phase 8a), and its numbers summed
+    the decode, in the batched phases 7a-7b, in the training
+    statistics (phase 8a) and on the sharded paths of phase 9
+    ("shard_launches": 9a, 9b, 9d and 9e, each tile a launch), and its
+    numbers summed
     over phase 2's and 2b's timed
     variants (each shape, size, direction or bit depth once):
     per-call medians through the wrapper ("ms"), the kernels' device time
@@ -1741,6 +1995,7 @@ def kernel_line(kern, launches, decode_launches, batch_launches,
             "decode_launches": decode_launches.get(name, 0),
             "batch_launches": batch_launches.get(name, 0),
             "train_launches": train_launches.get(name, 0),
+            "shard_launches": shard_launches.get(name, 0),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -1799,20 +2054,25 @@ def main(argv=None):
     run("4c sweep", phase_lean_small, torch, dev, sweep=True)
     run("4c sweep 1080p", phase_lean_sweep_1080p, torch, dev)
     decode_launches = run("6", phase_decoder, torch, dev, ref)
-    batch_launches = run("7a", phase_batch_step, torch, dev)
-    for k, v in run("7b", phase_clips_batched, torch, dev, ref).items():
+    batch_launches, batch_ref = run("7a", phase_batch_step, torch, dev)
+    clips_launches, clips_ref = run("7b", phase_clips_batched, torch, dev,
+                                    ref)
+    for k, v in clips_launches.items():
         batch_launches[k] = batch_launches.get(k, 0) + v
     run("7c", phase_segments, torch, dev)
     train_launches = run("8a", phase_train_zigzag, torch, dev)
     run("8b", phase_train_vq, torch, dev)
     run("8c", phase_train_gain, torch, dev)
     run("8d", phase_sweep_quality, torch, dev)
+    shard_launches = run("9", phase_sharded, torch, dev, ref, batch_ref,
+                         clips_ref)
     leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:
         raise AssertionError("imported: %s" % leaked)
     print(json.dumps(kernel_line(kern, launches, decode_launches,
-                                 batch_launches, train_launches)))
+                                 batch_launches, train_launches,
+                                 shard_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,7 +18,10 @@ decoder.  The native path derings every superblock of a plane in one
 batched call (`_apply_dering_device`); the Python path
 (DAALA_TPU_NATIVE_FRAME=0) filters one superblock at a time as the
 original does.  Haar-wavelet (lossless) frames decode on the host.
-`Decoder(info, use_device_synthesis=False)` is the host decoder.
+`Decoder(info, use_device_synthesis=False)` is the host decoder.  The
+`device_put_fn` attribute is the original's placement hook: with
+parallel/sharding.py named_put's, the synthesis runs in tiles over a
+mesh whose first device is `device`, with the same frames.
 """
 
 from __future__ import annotations
@@ -86,6 +89,10 @@ class Decoder:
                              "use_device_synthesis=False would go unused")
         else:
             self.device = None
+        # The device back end's placement hook (parallel/sharding.py
+        # named_put: synthesis in tiles over a mesh whose first device
+        # is `device`), or None.
+        self.device_put_fn = None
         self.state = CodecState(info)
         self.frames = []
         # Reference image ring (reference: src/state.h:216-219).
@@ -315,7 +322,8 @@ class Decoder:
             st.dering_level = lv.reshape(nvdr, nhdr).astype(np.int32)
         if device_synth:
             from daala_tpu_torch.models.synthesis import synthesize_frame
-            ctmp = synthesize_frame(st, info, dtmp, self.device)
+            ctmp = synthesize_frame(st, info, dtmp, self.device,
+                                    device_put_fn=self.device_put_fn)
             if st.quantizer != 0:
                 self._apply_dering_device(
                     ctmp, lv.reshape(nvdr, nhdr), is_keyframe)
@@ -662,7 +670,8 @@ class Decoder:
             # plane (daala_tpu_torch/models/synthesis.py), bit-exact with
             # the host loop above.
             from daala_tpu_torch.models.synthesis import synthesize_frame
-            ctmp = synthesize_frame(st, info, dtmp, self.device)
+            ctmp = synthesize_frame(st, info, dtmp, self.device,
+                                    device_put_fn=self.device_put_fn)
         elif not use_haar_wavelet:
             for pli in range(nplanes):
                 xdec = info.plane_dec[pli][0]

@@ -54,8 +54,14 @@ its JAX one; every other method is the original's:
   (models/restore.py dering_candidates_device, `_device_dering`) and
   the deferred native dering pass consumes them, byte-identically; the
   lean tier keeps the native engine's dering, as the original's.
-- The sharding hook (`device_put_fn`), which the port does not have,
-  is left out.
+- `device_put_fn` (default None), the original's placement hook, is
+  read where the original reads it: parallel/sharding.py named_put's
+  hook cuts the analysis planes, the RDO pyramid's luma and the SAD
+  fields into tiles over a (dp, sp) mesh of devices, and puts the PVQ
+  search's and the sweep's inputs whole on its first device, which
+  must be `device` (the stages raise otherwise).  Sharding changes
+  where the work runs, never the packets.  The dering candidates take
+  no hook, as in the original, and run on `device`.
 """
 
 from __future__ import annotations
@@ -262,6 +268,9 @@ class Encoder:
             raise ValueError("the port's Encoder runs a device tier: set "
                              "use_device_analysis or use_device_pvq")
         self.mv_refine_mode = mv_refine_mode
+        # The placement hook of the device tier (parallel/sharding.py
+        # named_put), or None: everything on `device`.
+        self.device_put_fn = None
         # Called right after motion estimation with (frame_count, grid,
         # ctx); None for no hook.
         self.mv_override_cb = None
@@ -921,7 +930,7 @@ class Encoder:
                     [rimg.planes[0] for _, rimg in refs],
                     MC.OD_BUFFER_PADDING, vis, self.mv_grid.nvmvbs,
                     self.mv_grid.nhmvbs, r=self.search_range,
-                    device=self.device)
+                    device=self.device, device_put_fn=self.device_put_fn)
             # "sweep" runs the refinement as batched device color
             # sweeps (mvest.refine_sweep) instead of the host greedy
             # loop; BMA + mesh subdivision stay in the native engine.
@@ -955,7 +964,8 @@ class Encoder:
                     self.mv_grid, search_luma, refs, info, lam_mv,
                     st.adapt, vis, frame_type,
                     iters=self._mv_refine_iters(), device=self.device,
-                    decimate=getattr(self, "mv_decimate", 0))
+                    decimate=getattr(self, "mv_decimate", 0),
+                    device_put_fn=self.device_put_fn)
             if not use_native_me:
                 mvest.estimate_multi(self.mv_grid, search_luma, refs,
                                      info, self.search_range, lam=lam_mv,
@@ -1026,7 +1036,7 @@ class Encoder:
                     mc_pl = [self_img.plane_view(0)]
                 self._device_rdo = KF.analyze_rdo_pyramid(
                     st, info, padded_in, mc_pl, st.quantizer == 0,
-                    self.device)
+                    self.device, device_put_fn=self.device_put_fn)
             cp = self._checkpoint_full()
             self._encode_coefficients(padded_in, self_img, is_keyframe,
                                       use_haar_wavelet, planes_u8,
@@ -1066,7 +1076,8 @@ class Encoder:
             dev_d = dev_md = None
             if is_keyframe:
                 dev_d, fetch_np = KF.analyze_keyframe(
-                    st, info, padded_in, st.quantizer == 0, self.device)
+                    st, info, padded_in, st.quantizer == 0, self.device,
+                    device_put_fn=self.device_put_fn)
             else:
                 # Inter front-end: input + OBMC prediction through the
                 # same device transform pipeline.
@@ -1074,7 +1085,7 @@ class Encoder:
                              for pli in range(info.nplanes)]
                 dev_d, dev_md, fetch_np = KF.analyze_inter(
                     st, info, padded_in, mc_planes, st.quantizer == 0,
-                    self.device)
+                    self.device, device_put_fn=self.device_put_fn)
             # Device PVQ band search, queued on the still-resident
             # analysis coefficients and finished after the analysis
             # fetch (reference search: src/pvq_encoder.c:333).
@@ -1084,7 +1095,8 @@ class Encoder:
                 finish_pvq = PS.search_frame(
                     st, info, st.quantizer, dev_d, dev_md,
                     self.pvq_norm_lambda, is_keyframe=bool(is_keyframe),
-                    use_masking=bool(self.use_activity_masking))
+                    use_masking=bool(self.use_activity_masking),
+                    device_put_fn=self.device_put_fn)
             if device_on:
                 if is_keyframe:
                     self._device_d = fetch_np()

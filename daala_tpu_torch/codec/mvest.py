@@ -989,14 +989,16 @@ def refine_mvs(grid: MVGrid, cur_luma, ref_images, info, lam,
 
 @devstats.span("refine_sweep")
 def refine_sweep(grid, cur_luma, refs, info, lam, adapt, vis, frame_type,
-                 iters, device, decimate=0):
+                 iters, device, decimate=0, device_put_fn=None):
     """Device colour-sweep MV refinement (models/mesweep.py): the Jacobi
     re-posing of the greedy refine_mvs coordinate descent.  Same cost
     semantics per evaluation (FieldCache cell SADs, exact rate model via
     the native me_sweep_cands/me_sweep_rates helpers); only the update
     schedule differs, so streams stay valid.  Returns the number of
     accepted MV changes.  Raises when the native engine is missing (the
-    JAX version returns 0 and skips the refinement).  Runs in the
+    JAX version returns 0 and skips the refinement).  A placement hook
+    (`device_put_fn`) puts the sweep's planes on its first device, which
+    must be `device` (models/mesweep.py SweepState).  Runs in the
     devstats span `refine_sweep`."""
     from daala_tpu_torch import native as native_mod
     from daala_tpu_torch.models import mesweep as MS
@@ -1005,7 +1007,7 @@ def refine_sweep(grid, cur_luma, refs, info, lam, adapt, vis, frame_type,
         raise RuntimeError("refine_sweep needs the native engine "
                            "(me_sweep_cands / me_sweep_rates)")
     state = MS.SweepState(grid, info, cur_luma, _ref_slot_planes(refs, info),
-                          vis, device)
+                          vis, device, device_put_fn=device_put_fn)
     nh, nv = grid.nhmvbs, grid.nvmvbs
     stride = nh + 1
     vys, vxs = np.nonzero(grid.valid)

@@ -130,3 +130,23 @@ FRAME_HD inline void lap_edges(int a, int b, int sb, int nsb, int &k_lo,
   k_hi = (b + 1) / sb;
   if (k_hi > nsb - 1) k_hi = nsb - 1;
 }
+
+// lap_edges for a tensor that holds rows (or columns) [o, o + size) of a
+// plane of nsb superblocks (a tile of a sharded plane, with its halo):
+// the edges whose bands touch [a, b) of the tensor, in the tensor's own
+// coordinates, and whose whole band lies inside the tensor.  A band that
+// the tensor holds only in part belongs to a neighbour.  With o = 0 and
+// size the plane's, these are lap_edges' edges.
+FRAME_HD inline int lap_floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+FRAME_HD inline void lap_edges_at(int a, int b, int sb, int nsb, int o,
+                                  int size, int &k_lo, int &k_hi) {
+  lap_edges(a + o, b + o, sb, nsb, k_lo, k_hi);
+  // k * sb - 2 >= o  and  k * sb + 2 <= o + size.
+  const int lo = -lap_floor_div(-(o + 2), sb);
+  const int hi = lap_floor_div(o + size - 2, sb);
+  if (k_lo < lo) k_lo = lo;
+  if (k_hi > hi) k_hi = hi;
+}
+

@@ -37,6 +37,17 @@
 // One tile per block, every block resident at once at 1080p.  A ring
 // over tiles (a persistent grid, the next tile's copies in flight while
 // one is filtered and stored) was tried and was slower.
+//
+// A tile of a sharded plane (parallel/sharding.py): the tensor holds rows
+// [oy, oy + h) and columns [ox, ox + w) of a (ph, pw) plane, its interior
+// and a halo of 2 on each side that has a neighbour.  The kernel filters
+// the plane's edges (k = 1 .. ph/sb - 1) whose whole band lies in the
+// tensor (lap_edges_at), at their places in the tensor.  The origin is
+// even, so a band start is even in the tensor and every band and corner
+// that touches a block's tile still lies in the tile and its halo.  A
+// halo of 2 rather than a whole superblock: 4 more columns a 960-wide
+// tile, not 128.  With the origin 0 and the plane the tensor's own, this
+// is the unsharded filter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,17 +78,18 @@ __device__ __forceinline__ void lift4(int32_t *v) {
 
 // Lift the bands of edges k_lo..k_hi across `lanes` lanes [l0, l1) of the
 // tile in shared memory.  ROWS: the bands are 4 rows (vertical lifting),
-// the lanes columns; otherwise 4 columns, the lanes rows.  r0, c0: the
-// plane's row and column at shared (0, 0).
+// the lanes columns; otherwise 4 columns, the lanes rows.
+// r0, c0: the tensor's row and column at shared (0, 0); o: the plane
+// position of the tensor's first row (ROWS) or column.
 template <bool ROWS, bool FWD>
 __device__ __forceinline__ void bands(int32_t *s, int pitch, int r0, int c0,
-                                      int sb, int k_lo, int k_hi, int l0,
-                                      int l1) {
+                                      int sb, int o, int k_lo, int k_hi,
+                                      int l0, int l1) {
   const int nl = l1 - l0;
   const int items = (k_hi - k_lo + 1) * nl;
   for (int e = threadIdx.x; e < items; e += kLapThreads) {
     const int kb = e / nl, l = l0 + (e - kb * nl);
-    const int start = (k_lo + kb) * sb - 2;
+    const int start = (k_lo + kb) * sb - 2 - o;
     int32_t *p = ROWS ? s + (start - r0) * pitch + (l - c0)
                       : s + (l - r0) * pitch + (start - c0);
     const int step = ROWS ? pitch : 1;
@@ -94,11 +106,12 @@ template <bool FWD>
 __global__ void __launch_bounds__(kLapThreads)
     lap_frame_kernel(const int32_t *__restrict__ in,
                      int32_t *__restrict__ out, int h, int w, int sb_x,
-                     int sb_y, int th, int tw, int pitch, int vec) {
+                     int sb_y, int oy, int ox, int ph, int pw, int th,
+                     int tw, int pitch, int vec) {
   extern __shared__ __align__(16) int32_t s[];
   const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
   const int y1 = min(y0 + th, h), x1 = min(x0 + tw, w);
-  const int r0 = y0 - 2, c0 = x0 - 4;  // plane position of s[0]
+  const int r0 = y0 - 2, c0 = x0 - 4;  // tensor position of s[0]
   // The loaded region: the tile, its halo, clipped to the plane.
   const int ly0 = max(y0 - 2, 0), ly1 = min(y1 + 2, h);
   const int lx0 = max(x0 - 4, 0), lx1 = min(x1 + 4, w);
@@ -120,23 +133,24 @@ __global__ void __launch_bounds__(kLapThreads)
                   in + (size_t)r * w + c);
     }
   }
+  // Edges whose bands touch the tile, per axis: their divisions run
+  // while the copies are in flight.
+  int ky_lo, ky_hi, kx_lo, kx_hi;
+  lap_edges_at(y0, y1, sb_y, ph / sb_y, oy, h, ky_lo, ky_hi);
+  lap_edges_at(x0, x1, sb_x, pw / sb_x, ox, w, kx_lo, kx_hi);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  // Edges whose bands touch the tile, per axis.
-  int ky_lo, ky_hi, kx_lo, kx_hi;
-  lap_edges(y0, y1, sb_y, h / sb_y, ky_lo, ky_hi);
-  lap_edges(x0, x1, sb_x, w / sb_x, kx_lo, kx_hi);
   if (FWD) {
     // Row bands over the tile's columns and 2 of the halo each side.
-    bands<true, FWD>(s, pitch, r0, c0, sb_y, ky_lo, ky_hi, max(x0 - 2, 0),
-                     min(x1 + 2, w));
+    bands<true, FWD>(s, pitch, r0, c0, sb_y, oy, ky_lo, ky_hi,
+                     max(x0 - 2, 0), min(x1 + 2, w));
     __syncthreads();
-    bands<false, FWD>(s, pitch, r0, c0, sb_x, kx_lo, kx_hi, y0, y1);
+    bands<false, FWD>(s, pitch, r0, c0, sb_x, ox, kx_lo, kx_hi, y0, y1);
   } else {
-    bands<false, FWD>(s, pitch, r0, c0, sb_x, kx_lo, kx_hi, max(y0 - 2, 0),
-                      min(y1 + 2, h));
+    bands<false, FWD>(s, pitch, r0, c0, sb_x, ox, kx_lo, kx_hi,
+                      max(y0 - 2, 0), min(y1 + 2, h));
     __syncthreads();
-    bands<true, FWD>(s, pitch, r0, c0, sb_y, ky_lo, ky_hi, x0, x1);
+    bands<true, FWD>(s, pitch, r0, c0, sb_y, oy, ky_lo, ky_hi, x0, x1);
   }
   __syncthreads();
   if (vec) {
@@ -157,27 +171,32 @@ __global__ void __launch_bounds__(kLapThreads)
 
 template <bool FWD>
 int launch(const int32_t *in, int32_t *out, int h, int w, int sb_x,
-           int sb_y, cudaStream_t s) {
+           int sb_y, int oy, int ox, int ph, int pw, cudaStream_t s) {
   const LapPlan p = lap_plan(h, w);
   const int vec = w % 4 == 0 && (uintptr_t)in % 16 == 0 &&
                   (uintptr_t)out % 16 == 0;
   const dim3 grid(p.tiles_x, p.tiles_y);
   lap_frame_kernel<FWD><<<grid, kLapThreads, p.smem_bytes, s>>>(
-      in, out, h, w, sb_x, sb_y, p.th, p.tw, p.pitch, vec);
+      in, out, h, w, sb_x, sb_y, oy, ox, ph, pw, p.th, p.tw, p.pitch, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// in, out: (h, w) int32, contiguous, distinct, 4-byte aligned.  Returns
-// the launch's cudaGetLastError().
+// in, out: (h, w) int32, contiguous, distinct, 4-byte aligned, holding
+// rows [oy, oy + h) and columns [ox, ox + w) of a (ph, pw) plane (oy, ox
+// even; 0, 0, h, w for a whole plane).  Returns the launch's
+// cudaGetLastError().
 extern "C" int lap_frame(const void *in, void *out, int h, int w, int sb_x,
-                         int sb_y, int forward, void *stream) {
+                         int sb_y, int oy, int ox, int ph, int pw,
+                         int forward, void *stream) {
   const int32_t *src = (const int32_t *)in;
   int32_t *dst = (int32_t *)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (h <= 0 || w <= 0 || sb_x < 4 || sb_y < 4)
+  if (h <= 0 || w <= 0 || sb_x < 4 || sb_y < 4 || (oy & 1) || (ox & 1) ||
+      ph <= 0 || pw <= 0)
     return (int)cudaErrorInvalidValue;
-  return forward ? launch<true>(src, dst, h, w, sb_x, sb_y, s)
-                 : launch<false>(src, dst, h, w, sb_x, sb_y, s);
+  return forward ? launch<true>(src, dst, h, w, sb_x, sb_y, oy, ox, ph, pw, s)
+                 : launch<false>(src, dst, h, w, sb_x, sb_y, oy, ox, ph, pw,
+                                 s);
 }

@@ -18,6 +18,16 @@ ops/dct.py and is re-exported here, where the JAX package has it.
 which would filter across the seam between two of them.  Every integer
 operation wraps as JAX's int32 does, and `encode_step`'s `sse` and `nz`
 are int32 sums that wrap as JAX's do (x64 is off there).
+
+`encode_step` runs in tiles: it takes a frame cut into tiles over a
+mesh of devices (parallel/sharding.py ShardedPlane, uploaded with a
+halo of 2, as parallel/mesh.py shard_batch puts it), the counterpart of
+JAX's step on a sharded batch, or a tensor, which is one tile on its
+device (sharding.as_plane).  Tiles are cut on superblocks, so the split
+filters and the DCTs of a tile are the frame's; the frame lapped
+filters run from each tile's origin, the forward one on the uploaded
+halo, the inverse one on a halo exchanged from the neighbours'
+reconstructions.
 """
 
 from __future__ import annotations
@@ -28,8 +38,9 @@ from daala_tpu_torch.ops.intrin import OD_COEFF_SHIFT
 from daala_tpu_torch.ops.cuda.dct_kernels import dct_frame
 from daala_tpu_torch.ops.cuda.lap_kernels import (
     filter_cols_at as _filter_cols_at, filter_rows_at as _filter_rows_at,
-    lap_frame)
+    lap_tile)
 from daala_tpu_torch.ops.dct import blocks_of, unblocks
+from daala_tpu_torch.parallel.sharding import as_plane
 
 __all__ = ["OD_BSIZE_MAX", "lift_to_coeff", "coeff_to_u8",
            "prefilter_frame", "postfilter_frame", "split_filter",
@@ -61,15 +72,18 @@ def coeff_to_u8(coeffs):
     return torch.clamp((v >> OD_COEFF_SHIFT) + 128, 0, 255).to(torch.uint8)
 
 
-def prefilter_frame(c, sb=OD_BSIZE_MAX):
+def prefilter_frame(c, sb=OD_BSIZE_MAX, tile=None):
     """Frame-level lapped prefilter at superblock boundaries
-    (reference: src/filter.c:1529-1560): horizontal edges then vertical."""
-    return lap_frame(c, sb_x=sb, sb_y=sb, forward=True)
+    (reference: src/filter.c:1529-1560): horizontal edges then vertical.
+    On a tile (parallel/sharding.py Tile; c laid out as its data, halo
+    included) the frame's edges in the tile, and the tile's interior
+    returned."""
+    return lap_tile(c, sb, sb, True, tile)
 
 
-def postfilter_frame(c, sb=OD_BSIZE_MAX):
+def postfilter_frame(c, sb=OD_BSIZE_MAX, tile=None):
     """The inverse of prefilter_frame: vertical edges then horizontal."""
-    return lap_frame(c, sb_x=sb, sb_y=sb, forward=False)
+    return lap_tile(c, sb, sb, False, tile)
 
 
 def _edge_filter(filt, c, starts, dim, inv):
@@ -125,24 +139,26 @@ def split_unfilter(c, bs_to):
     return c
 
 
-def fdct_frame(c, bs):
+def fdct_frame(c, bs, origin=(0, 0)):
     """Blockwise forward DCT of the whole (H, W) frame at uniform size
-    4 << bs (the dct_frame kernel on a CUDA tensor)."""
-    return dct_frame(c.contiguous(), 4 << bs, forward=True)
+    4 << bs (the dct_frame kernel on a CUDA tensor), or of a tile of one
+    at `origin`."""
+    return dct_frame(c.contiguous(), 4 << bs, forward=True, origin=origin)
 
 
-def idct_frame(d, bs):
+def idct_frame(d, bs, origin=(0, 0)):
     """Blockwise inverse DCT of the whole (H, W) frame at size 4 << bs."""
-    return dct_frame(d.contiguous(), 4 << bs, forward=False)
+    return dct_frame(d.contiguous(), 4 << bs, forward=False, origin=origin)
 
 
-def analysis_transform(frame_u8, bs=1):
+def analysis_transform(frame_u8, bs=1, tile=None):
     """Full forward analysis of one (H, W) uint8 frame: pixels -> lapped,
-    transformed int32 coefficients at the uniform block size 4 << bs."""
+    transformed int32 coefficients at the uniform block size 4 << bs.
+    `tile`: as prefilter_frame's."""
     c = lift_to_coeff(frame_u8)
-    c = prefilter_frame(c)
+    c = prefilter_frame(c, tile=tile)
     c = split_filter(c, 4, bs)
-    return fdct_frame(c, bs)
+    return fdct_frame(c, bs, (0, 0) if tile is None else tile.start[-2:])
 
 
 def synthesis_transform(coeffs, bs=1):
@@ -153,22 +169,46 @@ def synthesis_transform(coeffs, bs=1):
     return coeff_to_u8(c)
 
 
+def _quantize(d, quant):
+    """Uniform rounding quantization of int32 coefficients: (dq, dq * q)
+    in int64 and int32, with JAX's int32 arithmetic (done in int64 and
+    wrapped where it could overflow; `//` floors in both frameworks)."""
+    d = d.to(torch.int64)
+    q = int(wrap32(quant))
+    h = q >> 1
+    dq = torch.where(d >= 0, wrap32(d + h) // q, -(wrap32(-d + h) // q))
+    dq = wrap32(dq)
+    return dq, wrap32(dq * q).to(torch.int32)
+
+
+def _stats(rec, frame_u8, dq):
+    """The squared error and the nonzero quantized coefficients, summed
+    exactly (int64)."""
+    err = rec.to(torch.int64) - frame_u8.to(torch.int64)
+    return (err * err).sum(), (dq != 0).sum()
+
+
 def encode_step(frame_u8, bs=1, quant=3840):
     """One device-side 'encode step' of one (H, W) uint8 frame: analysis,
     uniform rounding quantization of the coefficients, reconstruction,
     and distortion statistics.  Returns (rec uint8 (H, W), sse, nz), the
     last two 0-d int32 tensors on the frame's device: the squared error
     and the nonzero quantized coefficients, summed in int32 with JAX's
-    wrap."""
-    d = analysis_transform(frame_u8, bs=bs).to(torch.int64)
-    q = int(wrap32(quant))
-    h = q >> 1
-    # JAX's int32 arithmetic, done in int64 and wrapped where it could
-    # overflow; `//` is floor division in both frameworks.
-    dq = torch.where(d >= 0, wrap32(d + h) // q, -(wrap32(-d + h) // q))
-    dq = wrap32(dq)
-    rec = synthesis_transform(wrap32(dq * q).to(torch.int32), bs=bs)
-    err = rec.to(torch.int64) - frame_u8.to(torch.int64)
-    sse = wrap32((err * err).sum()).to(torch.int32)
-    nz = wrap32((dq != 0).sum()).to(torch.int32)
-    return rec, sse, nz
+    wrap.  On a ShardedPlane frame rec is a ShardedPlane cut as the
+    frame, and sse and nz lie on the mesh's first device."""
+    frame, back = as_plane(frame_u8)
+    recon, qs = [], []
+    for t in frame.tiles:
+        dq, deq = _quantize(analysis_transform(t.data, bs, tile=t), quant)
+        recon.append(split_unfilter(idct_frame(deq, bs, t.start), bs))
+        qs.append(dq)
+    halo = frame.replace(recon).exchange_halo(2)
+    recs, sse, nz = [], 0, 0
+    for t, th, dq in zip(frame.tiles, halo.tiles, qs):
+        rec = coeff_to_u8(postfilter_frame(th.data, tile=th))
+        e, z = _stats(rec, t.crop(), dq)
+        sse = sse + e.to(frame.device)
+        nz = nz + z.to(frame.device)
+        recs.append(rec)
+    return (back(frame.replace(recs)), wrap32(sse).to(torch.int32),
+            wrap32(nz).to(torch.int32))

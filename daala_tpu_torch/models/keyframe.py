@@ -16,6 +16,20 @@ byte-identical packets (tests/test_torch_encoder.py).
 
 Functions that take tensors compute on the tensors' device; the
 analyze_* entry points take numpy planes and an explicit `device`.
+
+The analyze_* functions place their planes with a placement hook
+(`device_put_fn`, parallel/sharding.py named_put), the counterpart of
+the JAX functions' sharded inputs; without one, each plane is one tile
+on `device` (sharding.stage_hook).  A hook cuts each plane into tiles
+on superblock boundaries, one per device of the mesh, each uploaded
+with a halo of 2 pixels on each side that has a neighbour (the reach of
+the frame lapped prefilter's bands), and the plane functions below run
+on every tile (`tile=`): the lap kernel filters the plane's edges
+inside the tile from the tile's origin, the halo is cut off, and every
+later step (the split filters, the DCTs, the Haar merges, with the
+masks cut per tile in node units) runs on the tile's interior, whose
+nodes and blocks are the plane's.  The results are ShardedPlanes, equal
+tile for tile to the unsharded planes; finish() gathers them.
 """
 
 from __future__ import annotations
@@ -25,8 +39,9 @@ import torch
 
 from daala_tpu_torch.ops import _lifting as L
 from daala_tpu_torch.device import resolve
+from daala_tpu_torch.parallel.sharding import fetch_all, stage_hook
 from daala_tpu_torch.ops.cuda.dct_kernels import dct_frame
-from daala_tpu_torch.ops.cuda.lap_kernels import lap_frame
+from daala_tpu_torch.ops.cuda.lap_kernels import lap_tile
 from daala_tpu_torch.utils import devstats
 
 OD_NBSIZES = 5
@@ -136,11 +151,13 @@ def _masked_dc_merge(d, mmask, n):
     return out
 
 
-def _prefilter_frame_dec(c, xdec, ydec):
+def _prefilter_frame_dec(c, xdec, ydec, tile=None):
     """Frame lapped prefilter with per-axis superblock sizes
     (filter.py apply_prefilter_frame_sbs for a decimated plane), through
-    the lap kernel on a CUDA tensor."""
-    return lap_frame(c, sb_x=64 >> xdec, sb_y=64 >> ydec, forward=True)
+    the lap kernel on a CUDA tensor.  On a tile (parallel/sharding.py
+    Tile, c laid out as its data) the plane's edges in the tile are
+    filtered and the tile's interior returned."""
+    return lap_tile(c, 64 >> xdec, 64 >> ydec, True, tile)
 
 
 def _lift_input(plane, fpr_mode, lossless):
@@ -156,33 +173,36 @@ def _lift_input(plane, fpr_mode, lossless):
     return (x - 128) << (0 if lossless else 4)
 
 
-def _leaf_dcts(c, leaf):
+def _leaf_dcts(c, leaf, at=(0, 0)):
     """Per-size leaf DCTs, mask-combined: each n x n leaf of the map
-    takes the n-point blockwise DCT of c."""
+    takes the n-point blockwise DCT of c (`at`: c's place in the
+    plane)."""
     d = torch.zeros_like(c)
     for bs_p in sorted(leaf.keys()):
         n = 4 << bs_p
-        dn = dct_frame(c, n, forward=True)
+        dn = dct_frame(c, n, forward=True, origin=at)
         m = leaf[bs_p].repeat_interleave(n, dim=0).repeat_interleave(n, dim=1)
         d = torch.where(m, dn, d)
     return d
 
 
 def keyframe_analysis_plane(plane, mask_args, xdec=0, ydec=0,
-                            lossless=False, fpr_mode=0):
+                            lossless=False, fpr_mode=0, tile=None):
     """Device analysis of one keyframe plane: returns the `d` coefficient
     plane exactly as the host _compute_dcts pass produces it (before the
     Haar DC tree quantization, which is host-side sequential coding).
 
-    mask_args: (split_h, split_v, merge, leaf) dicts of bool tensors."""
+    mask_args: (split_h, split_v, merge, leaf) dicts of bool tensors.
+    With `tile`, plane is that tile's data (halo included), mask_args
+    are cut to its interior, and the interior's `d` is returned."""
     (split_h, split_v, merge, leaf) = mask_args
     c = _lift_input(plane, fpr_mode, lossless)
-    c = _prefilter_frame_dec(c, xdec, ydec)
+    c = _prefilter_frame_dec(c, xdec, ydec, tile)
     # Split prefilters, top level down.
     for bsi in range(OD_NBSIZES - 1, 0, -1):
         n = 4 << (bsi - xdec)
         c = _masked_split_filter(c, split_h[bsi], split_v[bsi], n)
-    d = _leaf_dcts(c, leaf)
+    d = _leaf_dcts(c, leaf, _at(tile))
     # Haar DC merges, bottom up.
     for bsi in range(1, OD_NBSIZES):
         n = 4 << (bsi - xdec)
@@ -190,14 +210,19 @@ def keyframe_analysis_plane(plane, mask_args, xdec=0, ydec=0,
     return d
 
 
-def _upload_plane(plane, device):
-    """A numpy plane on `device`, without widening: uint8 stays uint8,
-    and a 12-bit uint16 buffer travels as int16 (torch's uint16 supports
-    few ops; 12-bit values fit int16 unchanged)."""
+def _host_plane(plane):
+    """A numpy plane as it travels: uint8 stays uint8, and a 12-bit
+    uint16 buffer travels as int16 (torch's uint16 supports few ops;
+    12-bit values fit int16 unchanged)."""
     plane = np.asarray(plane)
     if plane.dtype == np.uint16:
         plane = np.ascontiguousarray(plane).view(np.int16)
-    return devstats.upload(plane, device)
+    return plane
+
+
+def _upload_plane(plane, device):
+    """A numpy plane on `device`, without widening (_host_plane)."""
+    return devstats.upload(_host_plane(plane), device)
 
 
 def _mask_tensors(masks, device):
@@ -206,49 +231,84 @@ def _mask_tensors(masks, device):
                  for key in ("split_h", "split_v", "merge", "leaf"))
 
 
-def analyze_keyframe(state, info, padded_planes, lossless, device):
+def _cut(mask, n, tile):
+    """The part of a per-node mask (nodes of n pixels) under a tile's
+    interior."""
+    (r0, c0), (r1, c1) = tile.start[-2:], tile.stop[-2:]
+    return mask[r0 // n:r1 // n, c0 // n:c1 // n]
+
+
+def _tile_masks(masks, xdec, tile):
+    """build_analysis_masks' masks cut to a tile, as tensors on its
+    device."""
+    cut = {key: {bsi: _cut(v, 4 << (bsi - xdec), tile)
+                 for bsi, v in masks[key].items()}
+           for key in ("split_h", "split_v", "merge")}
+    cut["leaf"] = {bs_p: _cut(v, 4 << bs_p, tile)
+                   for bs_p, v in masks["leaf"].items()}
+    return _mask_tensors(cut, tile.device)
+
+
+def _put_plane(device_put_fn, plane, pli, xdec, ydec):
+    """A plane cut by the hook on its superblocks, with the forward
+    lapped filter's halo of 2."""
+    return device_put_fn(_host_plane(plane), pli, halo=2,
+                         unit=(64 >> ydec, 64 >> xdec))
+
+
+def analyze_keyframe(state, info, padded_planes, lossless, device,
+                     device_put_fn=None):
     """Run the device analysis for every plane of a keyframe; returns
-    (d_dev, finish): the `d` planes as tensors on `device` (the PVQ band
-    search reads them there) and a zero-argument finish() that fetches
-    them as numpy int32 arrays (the host EC consumes those)."""
-    device = resolve(device)
+    (d_dev, finish): the `d` planes as ShardedPlanes on `device` (one
+    tile each), or in tiles over the mesh of `device_put_fn` (whose
+    first device must be `device`), which the PVQ band search reads
+    there, and a zero-argument finish() that fetches them as numpy int32
+    arrays (the host EC consumes those)."""
+    put_fn = stage_hook(device_put_fn, resolve(device))
     out = []
     with devstats.span("analyze_keyframe"):
         for pli in range(info.nplanes):
             xdec, ydec = info.plane_dec[pli]
-            mask_args = _mask_tensors(
-                build_analysis_masks(state, info, pli), device)
+            masks = build_analysis_masks(state, info, pli)
             fpr_mode = (info.bitdepth_mode
                         if np.asarray(padded_planes[pli]).dtype == np.uint16
                         else 0)
-            plane = _upload_plane(padded_planes[pli], device)
-            devstats.dispatch()
-            out.append(keyframe_analysis_plane(
-                plane, mask_args, xdec=xdec, ydec=ydec,
-                lossless=bool(lossless), fpr_mode=fpr_mode))
+            kw = dict(xdec=xdec, ydec=ydec, lossless=bool(lossless),
+                      fpr_mode=fpr_mode)
+            sp = _put_plane(put_fn, padded_planes[pli], pli, xdec, ydec)
+            ds = []
+            for t in sp.tiles:
+                devstats.dispatch()
+                ds.append(keyframe_analysis_plane(
+                    t.data, _tile_masks(masks, xdec, t), tile=t, **kw))
+            out.append(sp.replace(ds))
 
     def finish():
         with devstats.span("analyze_keyframe"):
-            devstats.prefetch(*out)
-            return [devstats.fetch(d) for d in out]
+            return fetch_all(out)
     return out, finish
 
 
-def _pad_follows_prediction(c, mc, pic_w, pic_h):
+def _pad_follows_prediction(c, mc, pic_w, pic_h, at=(0, 0)):
     """Padding tracks the prediction so no bits are spent there
     (reference: src/encode.c:2662-2686); the substitution happens in the
-    frame-prefiltered domain, matching the host order."""
+    frame-prefiltered domain, matching the host order.  `at`: the plane
+    position of c's first row and column (a tile's interior)."""
     h, w = c.shape
-    if pic_w is None or (pic_w >= w and pic_h >= h):
+    if pic_w is None or (pic_w >= at[1] + w and pic_h >= at[0] + h):
         return c
-    col = torch.arange(w, device=c.device)[None, :] >= pic_w
-    row = torch.arange(h, device=c.device)[:, None] >= pic_h
+    col = torch.arange(at[1], at[1] + w, device=c.device)[None, :] >= pic_w
+    row = torch.arange(at[0], at[0] + h, device=c.device)[:, None] >= pic_h
     return torch.where(col | row, mc, c)
+
+
+def _at(tile):
+    return (0, 0) if tile is None else tile.start[-2:]
 
 
 def inter_analysis_plane(plane, mc_plane, mask_args, xdec=0, ydec=0,
                          lossless=False, fpr_mode=0, mc_fpr_mode=0,
-                         pic_w=None, pic_h=None):
+                         pic_w=None, pic_h=None, tile=None):
     """Device analysis of one inter-frame plane: (d, md) coefficient
     planes for the input and its OBMC prediction, exactly as the host
     per-block recursion produces them (frame lapped prefilter, input
@@ -256,58 +316,63 @@ def inter_analysis_plane(plane, mc_plane, mask_args, xdec=0, ydec=0,
     prefilters, per-leaf DCT on both planes; no DC Haar tree on inter
     frames).  The host entropy pass consumes both unchanged
     (reference: od_encode_coefficients inter path,
-    src/encode.c:2630-2686)."""
+    src/encode.c:2630-2686).  `tile`: as keyframe_analysis_plane's."""
     (split_h, split_v, _merge, leaf) = mask_args  # no DC Haar tree
     c = _prefilter_frame_dec(_lift_input(plane, fpr_mode, lossless),
-                             xdec, ydec)
+                             xdec, ydec, tile)
     mc = _prefilter_frame_dec(_lift_input(mc_plane, mc_fpr_mode, lossless),
-                              xdec, ydec)
-    c = _pad_follows_prediction(c, mc, pic_w, pic_h)
+                              xdec, ydec, tile)
+    c = _pad_follows_prediction(c, mc, pic_w, pic_h, _at(tile))
     planes = []
     for z in (c, mc):
         for bsi in range(OD_NBSIZES - 1, 0, -1):
             n = 4 << (bsi - xdec)
             z = _masked_split_filter(z, split_h[bsi], split_v[bsi], n)
-        planes.append(_leaf_dcts(z, leaf))
+        planes.append(_leaf_dcts(z, leaf, _at(tile)))
     return planes[0], planes[1]
 
 
-def analyze_inter(state, info, padded_planes, mc_planes, lossless, device):
+def analyze_inter(state, info, padded_planes, mc_planes, lossless, device,
+                  device_put_fn=None):
     """Device (d, md) analysis for every plane of an inter frame; the
     prediction planes come from the OBMC stage (OD_FRAME_SELF).  Returns
-    (d_dev, md_dev, finish): the per-plane tensors on `device` (for the
-    PVQ band search) and a zero-argument finish() that fetches them as
-    the lists of numpy int32 `d` and `md` planes, so that the caller can
-    queue dependent device work before paying the device->host copy."""
-    device = resolve(device)
+    (d_dev, md_dev, finish): the per-plane ShardedPlanes, placed as
+    analyze_keyframe's (for the PVQ band search), and a zero-argument
+    finish() that fetches them as the lists of numpy int32 `d` and `md`
+    planes, so that the caller can queue dependent device work before
+    paying the device->host copy."""
+    put_fn = stage_hook(device_put_fn, resolve(device))
     d_out, md_out = [], []
     with devstats.span("analyze_inter"):
         for pli in range(info.nplanes):
             xdec, ydec = info.plane_dec[pli]
-            mask_args = _mask_tensors(
-                build_analysis_masks(state, info, pli), device)
-            pic_w = (info.pic_width + (1 << xdec) - 1) >> xdec
-            pic_h = (info.pic_height + (1 << ydec) - 1) >> ydec
-            fpr_mode = (info.bitdepth_mode
-                        if np.asarray(padded_planes[pli]).dtype == np.uint16
-                        else 0)
-            mc_fpr_mode = (info.bitdepth_mode
-                           if info.full_precision_references else 0)
-            plane = _upload_plane(padded_planes[pli], device)
-            mc = _upload_plane(mc_planes[pli], device)
-            devstats.dispatch()
-            d, md = inter_analysis_plane(
-                plane, mc, mask_args, xdec=xdec, ydec=ydec,
-                lossless=bool(lossless), fpr_mode=fpr_mode,
-                mc_fpr_mode=mc_fpr_mode, pic_w=pic_w, pic_h=pic_h)
-            d_out.append(d)
-            md_out.append(md)
+            masks = build_analysis_masks(state, info, pli)
+            kw = dict(
+                xdec=xdec, ydec=ydec, lossless=bool(lossless),
+                fpr_mode=(info.bitdepth_mode
+                          if np.asarray(padded_planes[pli]).dtype
+                          == np.uint16 else 0),
+                mc_fpr_mode=(info.bitdepth_mode
+                             if info.full_precision_references else 0),
+                pic_w=(info.pic_width + (1 << xdec) - 1) >> xdec,
+                pic_h=(info.pic_height + (1 << ydec) - 1) >> ydec)
+            sp = _put_plane(put_fn, padded_planes[pli], pli, xdec, ydec)
+            sp_mc = _put_plane(put_fn, mc_planes[pli], pli, xdec, ydec)
+            ds, mds = [], []
+            for t, tm in zip(sp.tiles, sp_mc.tiles):
+                devstats.dispatch()
+                d, md = inter_analysis_plane(
+                    t.data, tm.data, _tile_masks(masks, xdec, t), tile=t,
+                    **kw)
+                ds.append(d)
+                mds.append(md)
+            d_out.append(sp.replace(ds))
+            md_out.append(sp.replace(mds))
 
     def finish():
         with devstats.span("analyze_inter"):
-            devstats.prefetch(*(d_out + md_out))
-            return ([devstats.fetch(d) for d in d_out],
-                    [devstats.fetch(md) for md in md_out])
+            got = fetch_all(d_out + md_out)
+            return got[:len(d_out)], got[len(d_out):]
     return d_out, md_out, finish
 
 
@@ -346,13 +411,14 @@ def _rdo_level_masks(state, info):
     return out
 
 
-def _pyramid_levels(c, level_masks):
+def _pyramid_levels(c, level_masks, at=(0, 0)):
     """Emit the per-level DCT tensors top-down while applying the
-    all-split prefilters; level_masks[bsi] = (hmask, vmask) bool tensors."""
+    all-split prefilters; level_masks[bsi] = (hmask, vmask) bool tensors;
+    `at`: c's place in the plane."""
     out = {}
     for bsi in range(OD_NBSIZES - 1, -1, -1):
         n = 4 << bsi
-        out[bsi] = dct_frame(c, n, forward=True)
+        out[bsi] = dct_frame(c, n, forward=True, origin=at)
         if bsi > 0:
             hm, vm = level_masks[bsi]
             c = _masked_split_filter(c, hm, vm, n)
@@ -372,7 +438,7 @@ def _allsplit_haar_merge(d):
 
 def rdo_pyramid_luma(plane, mc_plane, level_masks, lossless=False,
                      fpr_mode=0, mc_fpr_mode=0, is_keyframe=True,
-                     pic_w=None, pic_h=None):
+                     pic_w=None, pic_h=None, tile=None):
     """Device RDO pyramid for the luma plane.
 
     Returns (d_levels, md_levels, d_rdo_merged):
@@ -381,46 +447,63 @@ def rdo_pyramid_luma(plane, mc_plane, level_masks, lossless=False,
       md_levels: same for the OBMC prediction (inter frames; else None);
       d_rdo_merged: keyframes only — level-0 tensor with the full DC
           Haar merge tree applied (what compute_dcts produces on the
-          all-4x4 map for the haar-DC quantization prep)."""
-    c = _prefilter_frame_dec(_lift_input(plane, fpr_mode, lossless), 0, 0)
+          all-4x4 map for the haar-DC quantization prep).
+    `tile`: as keyframe_analysis_plane's."""
+    c = _prefilter_frame_dec(_lift_input(plane, fpr_mode, lossless), 0, 0,
+                             tile)
     if is_keyframe:
-        d_levels = _pyramid_levels(c, level_masks)
+        d_levels = _pyramid_levels(c, level_masks, _at(tile))
         return d_levels, None, _allsplit_haar_merge(d_levels[0])
     mc = _prefilter_frame_dec(_lift_input(mc_plane, mc_fpr_mode, lossless),
-                              0, 0)
-    c = _pad_follows_prediction(c, mc, pic_w, pic_h)
-    return (_pyramid_levels(c, level_masks),
-            _pyramid_levels(mc, level_masks), None)
+                              0, 0, tile)
+    c = _pad_follows_prediction(c, mc, pic_w, pic_h, _at(tile))
+    return (_pyramid_levels(c, level_masks, _at(tile)),
+            _pyramid_levels(mc, level_masks, _at(tile)), None)
 
 
 def analyze_rdo_pyramid(state, info, padded_planes, mc_planes, lossless,
-                        device):
+                        device, device_put_fn=None):
     """Run the device RDO pyramid for luma; returns
     (d_levels, md_levels_or_None, d_rdo_merged_or_None) as numpy int32
-    dicts keyed by level.  mc_planes is None on keyframes."""
-    device = resolve(device)
+    dicts keyed by level.  mc_planes is None on keyframes.  The luma
+    plane is placed as analyze_keyframe's."""
+    put_fn = stage_hook(device_put_fn, resolve(device))
     is_keyframe = mc_planes is None
     with devstats.span("analyze_rdo_pyramid"):
-        level_masks = {k: (devstats.upload(h, device).bool(),
-                           devstats.upload(v, device).bool())
-                       for k, (h, v) in _rdo_level_masks(state, info).items()}
+        lm = _rdo_level_masks(state, info)
         plane_np = np.asarray(padded_planes[0])
-        fpr_mode = info.bitdepth_mode if plane_np.dtype == np.uint16 else 0
-        plane = _upload_plane(plane_np, device)
-        mc = None
-        mc_fpr_mode = 0
-        if not is_keyframe:
-            mc = _upload_plane(mc_planes[0], device)
-            mc_fpr_mode = (info.bitdepth_mode
-                           if info.full_precision_references else 0)
-        devstats.dispatch()
-        d_l, md_l, d_m = rdo_pyramid_luma(
-            plane, mc, level_masks, lossless=bool(lossless),
-            fpr_mode=fpr_mode, mc_fpr_mode=mc_fpr_mode,
-            is_keyframe=is_keyframe, pic_w=info.pic_width,
-            pic_h=info.pic_height)
-        d_out = {k: devstats.fetch(v) for k, v in d_l.items()}
+        kw = dict(lossless=bool(lossless),
+                  fpr_mode=info.bitdepth_mode
+                  if plane_np.dtype == np.uint16 else 0,
+                  mc_fpr_mode=0 if is_keyframe else (
+                      info.bitdepth_mode
+                      if info.full_precision_references else 0),
+                  is_keyframe=is_keyframe, pic_w=info.pic_width,
+                  pic_h=info.pic_height)
+        sp = _put_plane(put_fn, plane_np, 0, 0, 0)
+        sp_mc = (None if is_keyframe else
+                 _put_plane(put_fn, mc_planes[0], 0, 0, 0))
+        outs = []
+        for i, t in enumerate(sp.tiles):
+            level_masks = {
+                k: tuple(devstats.upload(_cut(m, 4 << k, t), t.device).bool()
+                         for m in hv)
+                for k, hv in lm.items()}
+            devstats.dispatch()
+            outs.append(rdo_pyramid_luma(
+                t.data, None if is_keyframe else sp_mc.tiles[i].data,
+                level_masks, tile=t, **kw))
+        d_l = {k: sp.replace([o[0][k] for o in outs]) for k in outs[0][0]}
+        md_l = (None if is_keyframe else
+                {k: sp.replace([o[1][k] for o in outs]) for k in outs[0][1]})
+        d_m = sp.replace([o[2] for o in outs]) if is_keyframe else None
+        keys = sorted(d_l)
+        flat = ([d_l[k] for k in keys]
+                + ([md_l[k] for k in keys] if md_l is not None else [])
+                + ([d_m] if d_m is not None else []))
+        got = fetch_all(flat)
+        d_out = dict(zip(keys, got[:len(keys)]))
         md_out = (None if md_l is None
-                  else {k: devstats.fetch(v) for k, v in md_l.items()})
-        dm_out = None if d_m is None else devstats.fetch(d_m)
+                  else dict(zip(keys, got[len(keys):2 * len(keys)])))
+        dm_out = None if d_m is None else got[-1]
         return d_out, md_out, dm_out

@@ -24,6 +24,7 @@ from daala_tpu_torch.codec import mc as MC
 from daala_tpu_torch.device import resolve
 from daala_tpu_torch.models import obmc as OB
 from daala_tpu_torch.ops.cuda import obmc_kernels as OK
+from daala_tpu_torch.parallel.sharding import stage_hook
 from daala_tpu_torch.utils import devstats
 
 _CELL = 8
@@ -38,16 +39,21 @@ def vertex_level(vx, vy):
 
 
 class SweepState:
-    """Per-frame device/host state for the colour sweeps."""
+    """Per-frame device/host state for the colour sweeps.  With a
+    placement hook (`device_put_fn`, parallel/sharding.py) the planes go
+    whole to its first device, which must be `device`: every sweep
+    reads OBMC windows anywhere in the reference planes (splitting the
+    leaves by the tile that owns them is left for later)."""
 
-    def __init__(self, grid, info, cur_luma, planes4, vis, device):
+    def __init__(self, grid, info, cur_luma, planes4, vis, device,
+                 device_put_fn=None):
         self.grid = grid
         self.info = info
         self.vis_h, self.vis_w = vis
         self.ch = -(-self.vis_h // _CELL)
         self.cw = -(-self.vis_w // _CELL)
         self.pad = MC.OD_BUFFER_PADDING
-        self.device = resolve(device)
+        self.device = stage_hook(device_put_fn, resolve(device)).device
         p4 = np.stack([np.ascontiguousarray(p, np.uint8) for p in planes4])
         self.planes4 = devstats.upload(p4, self.device)
         self.cur_vis = devstats.upload(

@@ -26,6 +26,7 @@ from daala_tpu_torch.codec.mc import (OD_LOG_MVB_DELTA0, OD_MVB_DELTA0,
                                       VERT_SETUP_DY, div_pow2_re)
 from daala_tpu_torch.device import resolve
 from daala_tpu_torch.ops.cuda import obmc_kernels as OK
+from daala_tpu_torch.parallel.sharding import stage_hook
 from daala_tpu_torch.utils import devstats
 
 
@@ -120,10 +121,14 @@ def predict_leaves(planes4, pos, srcs, mvs, ocs, ss, log_x, log_y, pad):
     return OK.obmc_blend(planes4, scal, log_x, log_y)
 
 
-def predict_frame_plane_device(grid, ref_imgs, ref_imgi, info, pli, device):
+def predict_frame_plane_device(grid, ref_imgs, ref_imgi, info, pli, device,
+                               device_put_fn=None):
     """Whole-plane OBMC prediction on `device`: the (h, w) predicted
-    plane as numpy (uint8, or uint16 for FPR references)."""
-    device = resolve(device)
+    plane as numpy (uint8, or uint16 for FPR references).  A placement
+    hook (`device_put_fn`, parallel/sharding.py) puts the reference
+    planes whole on its first device, which must be `device` (a leaf's
+    windows may lie anywhere in them)."""
+    device = stage_hook(device_put_fn, resolve(device)).device
     xdec, ydec = info.plane_dec[pli]
     h = info.frame_height >> ydec
     w = info.frame_width >> xdec

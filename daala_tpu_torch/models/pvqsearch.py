@@ -47,6 +47,7 @@ import torch
 from daala_tpu_torch.models.analysis import wrap32 as _wrap32
 from daala_tpu_torch.ops import partition as part
 from daala_tpu_torch.ops import pvq as P
+from daala_tpu_torch.parallel.sharding import stage_hook
 from daala_tpu_torch.utils import devstats
 
 _GAIN_WEIGHT = 1.4
@@ -925,15 +926,21 @@ class DevicePVQTable:
 
 
 def search_frame(st, info, quantizer, d_planes, md_planes, lam,
-                 is_keyframe=False, use_masking=True):
+                 is_keyframe=False, use_masking=True, device_put_fn=None):
     """Device PVQ search for a whole frame's bands, on the device of
-    the planes.
+    the planes, or with a placement hook (`device_put_fn`) on its first
+    device: the search gathers its bands from one flat buffer of every
+    plane's coefficients, so the planes (ShardedPlanes, parallel/
+    sharding.py) are assembled there whatever the hook's spec says, as
+    JAX's search replicates its 1-D buffers (splitting the rows by the
+    tile that owns them is left for later).
 
     st: codec state (bsize map, qm tables, pvq_qm_q4, the frame-start
     codeword CDFs); d_planes / md_planes: per-plane whole-frame
-    frequency-domain input / reference coefficients, as tensors on one
-    device (the deferred analysis outputs; md_planes None on
-    keyframes).  For inter frames every plane searches
+    frequency-domain input / reference coefficients, as tensors or
+    ShardedPlanes (the deferred analysis outputs; md_planes None on
+    keyframes), assembled on the search's device (a plane that is one
+    tile there is used as it is).  For inter frames every plane searches
     against its MC prediction; for keyframes only luma is searched,
     against a zero reference (chroma/CfL keyframe bands reference the
     coded luma and stay on the host, reference
@@ -947,6 +954,10 @@ def search_frame(st, info, quantizer, d_planes, md_planes, lam,
     finish() fetches the results as a DevicePVQTable.  Both parts run in
     the devstats span "search_frame"."""
     with devstats.span("search_frame"):
+        dev = stage_hook(device_put_fn, d_planes[0].device).device
+        d_planes = [p.to(dev) for p in d_planes]
+        if md_planes is not None:
+            md_planes = [p.to(dev) for p in md_planes]
         finish = _dispatch(st, info, quantizer, d_planes, md_planes, lam,
                         is_keyframe, use_masking)
 

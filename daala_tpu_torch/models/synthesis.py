@@ -21,6 +21,16 @@ for intra and inter frames alike: both reconstruct as the IDCT of the
 final leaf coefficients (inter leaves hold prediction + residual by the
 time the parse finishes).  models/restore.py dering_frame_device then
 applies the parsed dering levels.
+
+synthesize_frame places each `d` plane with a placement hook
+(`device_put_fn`, parallel/sharding.py named_put; without one, the
+plane is one tile on `device`), which cuts it into tiles on superblock
+boundaries, one per device of the mesh.  The IDCTs and split postfilters run on
+every tile's interior (its nodes and blocks are the plane's); then each
+tile takes a halo of 2 pixels, corners included, from its neighbours'
+results (ShardedPlane.exchange_halo: the one exchange between devices),
+the lap kernel runs the frame postfilter from the tile's origin, and
+the halo is cut off.
 """
 
 from __future__ import annotations
@@ -29,10 +39,12 @@ import numpy as np
 import torch
 
 from daala_tpu_torch.device import resolve
-from daala_tpu_torch.models.keyframe import _band_idx, build_analysis_masks
+from daala_tpu_torch.models.keyframe import (_band_idx, _cut,
+                                             build_analysis_masks)
 from daala_tpu_torch.ops import _lifting as L
 from daala_tpu_torch.ops.cuda.dct_kernels import dct_frame
-from daala_tpu_torch.ops.cuda.lap_kernels import lap_frame
+from daala_tpu_torch.ops.cuda.lap_kernels import lap_tile
+from daala_tpu_torch.parallel.sharding import fetch_all, stage_hook
 from daala_tpu_torch.utils import devstats
 
 OD_NBSIZES = 5
@@ -61,11 +73,30 @@ def _masked_split_postfilter(c, hmask, vmask, n):
     return c
 
 
-def _postfilter_frame_dec(c, xdec, ydec):
+def _postfilter_frame_dec(c, xdec, ydec, tile=None):
     """Frame lapped postfilter (filter.py apply_postfilter_frame_sbs):
     vertical superblock edges first, then horizontal, through the lap
-    kernel on a CUDA tensor."""
-    return lap_frame(c, sb_x=64 >> xdec, sb_y=64 >> ydec, forward=False)
+    kernel on a CUDA tensor.  On a tile (c laid out as its data, the
+    halo filled) the plane's edges in the tile are filtered and the
+    tile's interior returned."""
+    return lap_tile(c, 64 >> xdec, 64 >> ydec, False, tile)
+
+
+def _leaf_synthesis(d, mask_args, xdec, at=(0, 0)):
+    """The leaf IDCTs, mask-combined, then the split postfilters bottom
+    level up (children before parents): synthesis_plane before its frame
+    postfilter.  `at`: d's place in the plane."""
+    (split_h, split_v, _merge, leaf) = mask_args
+    c = torch.zeros_like(d)
+    for bs_p in sorted(leaf.keys()):
+        n = 4 << bs_p
+        cn = dct_frame(d, n, forward=False, origin=at)
+        m = leaf[bs_p].repeat_interleave(n, dim=0).repeat_interleave(n, dim=1)
+        c = torch.where(m, cn, c)
+    for bsi in range(1, OD_NBSIZES):
+        n = 4 << (bsi - xdec)
+        c = _masked_split_postfilter(c, split_h[bsi], split_v[bsi], n)
+    return c
 
 
 def synthesis_plane(d, mask_args, xdec=0, ydec=0):
@@ -77,27 +108,31 @@ def synthesis_plane(d, mask_args, xdec=0, ydec=0):
     keyframe.build_analysis_masks gives them (merge is unused here: the
     decoder un-merges the DC tree during symbol decode; a leaf size
     missing from `leaf` has no leaf)."""
-    (split_h, split_v, _merge, leaf) = mask_args
-    # Per-size leaf IDCTs, mask-combined.
-    c = torch.zeros_like(d)
-    for bs_p in sorted(leaf.keys()):
-        n = 4 << bs_p
-        cn = dct_frame(d, n, forward=False)
-        m = leaf[bs_p].repeat_interleave(n, dim=0).repeat_interleave(n, dim=1)
-        c = torch.where(m, cn, c)
-    # Split postfilters, bottom level up (children before parents).
-    for bsi in range(1, OD_NBSIZES):
-        n = 4 << (bsi - xdec)
-        c = _masked_split_postfilter(c, split_h[bsi], split_v[bsi], n)
-    return _postfilter_frame_dec(c, xdec, ydec)
+    return _postfilter_frame_dec(_leaf_synthesis(d, mask_args, xdec), xdec,
+                                 ydec)
 
 
-def synthesize_frame(state, info, d_planes, device):
-    """Run the device synthesis for every plane on `device`; returns the
-    reconstructed (pre-dering) coefficient planes as numpy int32, one
-    fetch per plane.  Leaf sizes absent from a plane's map are not
+def _synthesis_masks(masks, xdec, tile):
+    """(split_h, split_v, None, leaf) bool tensors on the tile's device,
+    cut to its interior."""
+    split_h, split_v = (
+        {k: devstats.upload(_cut(v, 4 << (k - xdec), tile),
+                            tile.device).bool()
+         for k, v in masks[key].items()}
+        for key in ("split_h", "split_v"))
+    leaf = {k: devstats.upload(_cut(v, 4 << k, tile), tile.device).bool()
+            for k, v in masks["leaf"].items()}
+    return split_h, split_v, None, leaf
+
+
+def synthesize_frame(state, info, d_planes, device, device_put_fn=None):
+    """Run the device synthesis for every plane on `device` (one tile
+    each), or in tiles over the mesh of `device_put_fn` (whose first
+    device must be `device`); returns the reconstructed (pre-dering)
+    coefficient planes as numpy int32, every fetch started before the
+    first is waited for.  Leaf sizes absent from a plane's map are not
     transformed."""
-    device = resolve(device)
+    put_fn = stage_hook(device_put_fn, resolve(device))
     out = []
     with devstats.span("synthesize_frame"):
         for pli in range(info.nplanes):
@@ -105,13 +140,16 @@ def synthesize_frame(state, info, d_planes, device):
             masks = build_analysis_masks(state, info, pli)
             masks["leaf"] = {k: v for k, v in masks["leaf"].items()
                              if v.any()}
-            split_h, split_v, leaf = (
-                {k: devstats.upload(v, device).bool()
-                 for k, v in masks[key].items()}
-                for key in ("split_h", "split_v", "leaf"))
-            d = devstats.upload(np.asarray(d_planes[pli], np.int32), device)
-            devstats.dispatch()
-            out.append(synthesis_plane(d, (split_h, split_v, None, leaf),
-                                       xdec=xdec, ydec=ydec))
-        devstats.prefetch(*out)
-        return [devstats.fetch(c) for c in out]
+            d_np = np.asarray(d_planes[pli], np.int32)
+            sp = put_fn(d_np, pli, unit=(64 >> ydec, 64 >> xdec))
+            cs = []
+            for t in sp.tiles:
+                devstats.dispatch()
+                cs.append(_leaf_synthesis(
+                    t.data, _synthesis_masks(masks, xdec, t), xdec,
+                    t.start))
+            halo = sp.replace(cs).exchange_halo(2)
+            out.append(halo.replace([
+                _postfilter_frame_dec(t.data, xdec, ydec, t)
+                for t in halo.tiles]))
+        return fetch_all(out)

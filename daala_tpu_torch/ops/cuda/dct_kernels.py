@@ -44,7 +44,7 @@ def dct_frame_plain(frame, n, forward=True):
     return dct.unblocks(f(dct.blocks_of(frame, n)), h, w)
 
 
-def _check(frame, n):
+def _check(frame, n, origin=(0, 0)):
     if n not in SIZES:
         raise ValueError("dct_frame: n must be one of %s, got %r"
                          % (SIZES, n))
@@ -57,6 +57,9 @@ def _check(frame, n):
                          % (h, w, n))
     if not frame.is_contiguous():
         raise ValueError("dct_frame takes a contiguous tensor")
+    if origin[0] % n or origin[1] % n:
+        raise ValueError("dct_frame: a tile at %s is off the n=%d grid"
+                         % (tuple(origin), n))
 
 
 def build():
@@ -64,9 +67,9 @@ def build():
     return _build.load(NAME, {NAME: _ARGTYPES})
 
 
-def dct_frame_cuda(frame, n, forward=True):
+def dct_frame_cuda(frame, n, forward=True, origin=(0, 0)):
     """Launch csrc/dct_frame.cu on a CUDA tensor; returns a new tensor."""
-    _check(frame, n)
+    _check(frame, n, origin)
     if frame.device.type != "cuda":
         raise ValueError("dct_frame_cuda takes a CUDA tensor")
     if frame.data_ptr() % 16:
@@ -84,12 +87,15 @@ def dct_frame_cuda(frame, n, forward=True):
     return out
 
 
-def dct_frame(frame, n, forward=True):
-    """Blockwise n x n forward or inverse DCT of an (H, W) int32 frame.
+def dct_frame(frame, n, forward=True, origin=(0, 0)):
+    """Blockwise n x n forward or inverse DCT of an (H, W) int32 frame,
+    or of the tile of one whose first row and column are `origin` in
+    the frame (parallel/sharding.py): its blocks are the frame's when
+    the origin lies on the n grid, and the call raises when it does not.
     The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if frame.device.type == "cuda":
-        return dct_frame_cuda(frame, n, forward)
+        return dct_frame_cuda(frame, n, forward, origin)
     if frame.device.type == "cpu":
-        _check(frame, n)
+        _check(frame, n, origin)
         return dct_frame_plain(frame, n, forward)
     raise ValueError("dct_frame: unsupported device %s" % frame.device)

@@ -12,6 +12,16 @@ tiles held in shared memory with a halo that holds every band and
 corner they touch.  See the note in csrc/lap_frame.cu and the launch
 plan in csrc/frame_plan.cuh.
 
+A tile of a sharded plane (parallel/sharding.py) is filtered in place
+of the plane it came from: `origin` is the tensor's first row and
+column in the plane and `plane` the plane's (H, W), and the filter
+lifts exactly the plane's superblock edges whose whole 4-pixel band
+lies in the tensor, at their places in it.  A tile cut on superblock
+boundaries with a halo of 2 on each side that has a neighbour holds
+every band that touches its interior, and its interior comes out as the
+plane's filter gives it.  Without `origin` and `plane` the tensor is
+the plane.
+
 `lap_frame` launches the kernel for a tensor on a CUDA device and runs
 the plain version only for a tensor on the CPU; there is no fallback.
 """
@@ -28,8 +38,8 @@ from daala_tpu_torch.utils import devstats
 
 NAME = "lap_frame"
 KERNELS = ("lap_frame_kernel",)  # the source's __global__ functions
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [
+    ctypes.c_void_p]
 
 
 def filter_rows_at(c, row_starts, inv):
@@ -61,21 +71,30 @@ def filter_cols_at(c, col_starts, inv):
     return c
 
 
-def _starts(size, sb):
-    return [k * sb - 2 for k in range(1, size // sb)]
+def _starts(size, sb, origin=0, plane=None):
+    """Band starts in a tensor of `size` rows (or columns) that begins at
+    `origin` of a plane of `plane` (default: the tensor is the plane):
+    the plane's edges k * sb, 1 <= k < plane // sb, whose whole band
+    k * sb - 2 .. k * sb + 1 lies in the tensor."""
+    plane = size if plane is None else plane
+    return [k * sb - 2 - origin for k in range(1, plane // sb)
+            if origin <= k * sb - 2 and k * sb + 2 <= origin + size]
 
 
-def lap_frame_plain(frame, sb_x=64, sb_y=64, forward=True):
+def lap_frame_plain(frame, sb_x=64, sb_y=64, forward=True, origin=(0, 0),
+                    plane=None):
     """The plain PyTorch version: what the kernel computes."""
     h, w = frame.shape
-    rows, cols = _starts(h, sb_y), _starts(w, sb_x)
+    ph, pw = (h, w) if plane is None else plane
+    rows = _starts(h, sb_y, origin[0], ph)
+    cols = _starts(w, sb_x, origin[1], pw)
     if forward:
         return filter_cols_at(filter_rows_at(frame, rows, False), cols,
                               False)
     return filter_rows_at(filter_cols_at(frame, cols, True), rows, True)
 
 
-def _check(frame, sb_x, sb_y):
+def _check(frame, sb_x, sb_y, origin, plane):
     if frame.dtype != torch.int32 or frame.dim() != 2:
         raise ValueError("lap_frame takes an (H, W) int32 tensor, got %s %s"
                          % (frame.dtype, tuple(frame.shape)))
@@ -84,6 +103,11 @@ def _check(frame, sb_x, sb_y):
     if sb_x < 4 or sb_y < 4:
         raise ValueError("superblock sizes must be >= 4 (bands of 4 "
                          "may not overlap), got %d x %d" % (sb_x, sb_y))
+    if origin[0] % 2 or origin[1] % 2:
+        raise ValueError("lap_frame: a tile's origin must be even, got %s"
+                         % (tuple(origin),))
+    if plane is not None and min(plane) <= 0:
+        raise ValueError("lap_frame: plane size %s" % (tuple(plane),))
 
 
 def build():
@@ -91,30 +115,45 @@ def build():
     return _build.load(NAME, {NAME: _ARGTYPES})
 
 
-def lap_frame_cuda(frame, sb_x=64, sb_y=64, forward=True):
+def lap_frame_cuda(frame, sb_x=64, sb_y=64, forward=True, origin=(0, 0),
+                   plane=None):
     """Launch csrc/lap_frame.cu on a CUDA tensor; returns a new tensor."""
-    _check(frame, sb_x, sb_y)
+    _check(frame, sb_x, sb_y, origin, plane)
     if frame.device.type != "cuda":
         raise ValueError("lap_frame_cuda takes a CUDA tensor")
     lib = build()
     h, w = frame.shape
+    ph, pw = (h, w) if plane is None else plane
     out = torch.empty_like(frame)
     with torch.cuda.device(frame.device):
         stream = torch.cuda.current_stream(frame.device).cuda_stream
         err = lib.lap_frame(frame.data_ptr(), out.data_ptr(), h, w, sb_x,
-                            sb_y, 1 if forward else 0, stream)
+                            sb_y, origin[0], origin[1], ph, pw,
+                            1 if forward else 0, stream)
     devstats.launch(NAME)
     _build.check(err, NAME)
     return out
 
 
-def lap_frame(frame, sb_x=64, sb_y=64, forward=True):
+def lap_frame(frame, sb_x=64, sb_y=64, forward=True, origin=(0, 0),
+              plane=None):
     """Frame lapped pre (forward) or post filter of an (H, W) int32
-    plane; sb_x/sb_y: superblock size per axis (64 >> xdec/ydec).  The
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    plane, or of a tile of one (`origin`, `plane`: see the module
+    docstring); sb_x/sb_y: superblock size per axis (64 >> xdec/ydec).
+    The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if frame.device.type == "cuda":
-        return lap_frame_cuda(frame, sb_x, sb_y, forward)
+        return lap_frame_cuda(frame, sb_x, sb_y, forward, origin, plane)
     if frame.device.type == "cpu":
-        _check(frame, sb_x, sb_y)
-        return lap_frame_plain(frame, sb_x, sb_y, forward)
+        _check(frame, sb_x, sb_y, origin, plane)
+        return lap_frame_plain(frame, sb_x, sb_y, forward, origin, plane)
     raise ValueError("lap_frame: unsupported device %s" % frame.device)
+
+
+def lap_tile(frame, sb_x, sb_y, forward, tile=None):
+    """lap_frame of a plane, or of a tile of one (parallel/sharding.py
+    Tile; `frame` laid out as its data, halo included), whose interior
+    it returns."""
+    if tile is None:
+        return lap_frame(frame, sb_x, sb_y, forward)
+    return tile.crop(lap_frame(frame, sb_x, sb_y, forward, tile.origin,
+                               tile.plane))

@@ -6,12 +6,13 @@ REAL codec's device stage.
   analysis of one keyframe luma plane (models/keyframe.py
   keyframe_analysis_plane), exactly what the production encoder
   consumes.
-- `dryrun_multichip(n_devices, device)` runs the legs the port can run
-  on a mesh of `n_devices` rows (parallel/mesh.py) and checks each:
-  a complexity-7 keyframe + P-frame encode with the device analysis,
-  the device synthesis decode, and the batched multi-clip encode.  The
-  spatially sharded leg of JAX's dry run waits for the mesh's `sp` axis
-  (ROADMAP.md, multi-GPU batching).
+- `dryrun_multichip(n_devices, device)` runs JAX's legs on the (dp, sp)
+  mesh of `n_devices` devices that parallel/mesh.py make_mesh gives
+  (dp = 2 when n_devices is even) and checks each: a complexity-7
+  keyframe + P-frame encode with the device analysis, the device
+  synthesis decode, the same encode and decode with the analysis and
+  the synthesis sharded over the mesh ("dp", "sp"), and the batched
+  multi-clip encode with each clip's planes over its row's columns.
 
 Both run on the card unless the caller asks for the CPU
 (device="cpu"), and raise when the cards are missing.
@@ -69,9 +70,10 @@ def entry(device="cuda"):
 
 
 def dryrun_multichip(n_devices, device="cuda"):
-    """Run the port's multi-device legs on a mesh of n_devices rows of
-    `device` ("cuda": the first n_devices cards, RuntimeError when fewer
-    are present; "cpu": n_devices CPU rows) and check each:
+    """Run the port's multi-device legs on make_mesh's (dp, sp) mesh of
+    n_devices devices of `device` ("cuda": the first n_devices cards,
+    RuntimeError when fewer are present; "cpu": n_devices CPU devices)
+    and check each:
 
     1. a complexity-7 keyframe + P-frame encode with the device analysis
        on the mesh's first device, encoder check on, byte-identical to
@@ -79,17 +81,22 @@ def dryrun_multichip(n_devices, device="cuda"):
        daala_tpu's host encoder);
     2. those packets decoded by the device back end on the mesh's first
        device: the host decoder's frames;
-    3. mesh.encode_clips_batched of n_devices clips (one per row, two
-       frames each, complexity 7) in both schedules, byte-identical to
-       serial encodes.
+    3. the encode of 1 with the analysis tier sharded over the mesh,
+       rows over dp and columns over sp (named_put(mesh, ("dp", "sp"))),
+       byte-identical to 1, and its decode with the synthesis sharded
+       likewise: the host decoder's frames;
+    4. mesh.encode_clips_batched of dp clips (one per row, each clip's
+       planes over its row's sp columns, two frames each, complexity 7)
+       in both schedules, byte-identical to serial encodes.
 
     Prints one line per leg and a summary; returns the packets of each
-    leg ({"kf_p": [...], "clips": [[...], ...]})."""
+    leg ({"kf_p": [...], "sharded": [...], "clips": [[...], ...]})."""
     import torch
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.decoder import Decoder
     from daala_tpu_torch.codec.encoder import Encoder
     from daala_tpu_torch.parallel import mesh as PM
+    from daala_tpu_torch.parallel.sharding import named_put
 
     if device == "cpu":
         devices = ["cpu"] * n_devices
@@ -115,11 +122,27 @@ def dryrun_multichip(n_devices, device="cuda"):
     frames = [_test_frame(w, h, seed=1), _test_frame(w, h, seed=2)]
     info = headers.Info(pic_width=w, pic_height=h)
 
-    def encode(dev, frs):
+    def encode(dev, frs, put=None):
         enc = Encoder(info, quant=18, complexity=7, device=dev)
         enc.keyframe_rate = 64
         enc.enable_encoder_check = True
+        enc.device_put_fn = put
         return [bytes(enc.encode_frame(fr)[0]) for fr in frs]
+
+    def decode(pkts, put=None):
+        dec = Decoder(info, device=dev0)
+        dec.device_put_fn = put
+        return [f for p in pkts for f in dec.decode_packet(p)]
+
+    def same_frames(got, name):
+        if not len(got) == len(frames_host) == 2:
+            raise AssertionError("%s: decoded %d / %d frames of 2"
+                                 % (name, len(got), len(frames_host)))
+        for fi in range(2):
+            for pli in range(3):
+                if not np.array_equal(frames_host[fi][pli], got[fi][pli]):
+                    raise AssertionError("%s reconstruction differs (frame "
+                                         "%d plane %d)" % (name, fi, pli))
 
     t0 = time.perf_counter()
     pkts_dev = encode(dev0, frames)
@@ -133,21 +156,23 @@ def dryrun_multichip(n_devices, device="cuda"):
 
     host = Decoder(info, use_device_synthesis=False)
     frames_host = [f for p in pkts_dev for f in host.decode_packet(p)]
-    dec_dev = Decoder(info, device=dev0)
-    frames_dev = [f for p in pkts_dev for f in dec_dev.decode_packet(p)]
+    same_frames(decode(pkts_dev), "device synthesis")
     t0 = leg("device synthesis decode on %s" % dev0, t0)
-    if not len(frames_dev) == len(frames_host) == 2:
-        raise AssertionError("decoded %d / %d frames of 2"
-                             % (len(frames_dev), len(frames_host)))
-    for fi in range(2):
-        for pli in range(3):
-            if not np.array_equal(frames_host[fi][pli],
-                                  frames_dev[fi][pli]):
-                raise AssertionError("device synthesis reconstruction "
-                                     "differs (frame %d plane %d)"
-                                     % (fi, pli))
 
-    dp = mesh.shape[0]
+    # Frame rows over dp, columns over sp; the P frame runs its
+    # prediction's analysis on the mesh too.
+    put = named_put(mesh, ("dp", "sp"))
+    pkts_sharded = encode(dev0, frames, put)
+    t0 = leg("sharded c7 KF+P device analysis encode on a %s mesh"
+             % (mesh.shape,), t0)
+    for i, (ps, pd) in enumerate(zip(pkts_sharded, pkts_dev)):
+        if ps != pd:
+            raise AssertionError("sharded analysis packet %d differs (%d vs "
+                                 "%d bytes)" % (i, len(ps), len(pd)))
+    same_frames(decode(pkts_sharded, put), "sharded device synthesis")
+    t0 = leg("sharded device synthesis decode", t0)
+
+    dp, sp = mesh.shape
     clips = [[_test_frame(w, h, seed=10 + c), _test_frame(w, h, seed=20 + c)]
              for c in range(dp)]
     kw = dict(pic_width=w, pic_height=h)
@@ -169,11 +194,12 @@ def dryrun_multichip(n_devices, device="cuda"):
                     "threads=%s)" % (ci, threads))
         nbytes += sum(map(len, want))
     leg("serial comparison", t0)
-    print("dryrun_multichip ok: %d %s rows; complexity-7 keyframe + "
-          "P-frame encode with the device analysis byte-identical to the "
-          "cpu run (%d + %d bytes); device synthesis decode bit-exact; "
-          "batched %d-clip c7 KF+P encode byte-identical to serial in both "
-          "schedules (%d bytes); %.1f s total"
-          % (dp, dev0.type, len(pkts_dev[0]), len(pkts_dev[1]), dp, nbytes,
-             time.perf_counter() - t_start))
-    return {"kf_p": pkts_dev, "clips": outs[True]}
+    print("dryrun_multichip ok: a (%d, %d) %s mesh; complexity-7 "
+          "keyframe + P-frame encode with the device analysis byte-identical "
+          "to the cpu run (%d + %d bytes), and sharded over the mesh; device "
+          "synthesis decode bit-exact, and sharded; batched %d-clip c7 KF+P "
+          "encode byte-identical to serial in both schedules (%d bytes); "
+          "%.1f s total"
+          % (dp, sp, dev0.type, len(pkts_dev[0]), len(pkts_dev[1]), dp,
+             nbytes, time.perf_counter() - t_start))
+    return {"kf_p": pkts_dev, "sharded": pkts_sharded, "clips": outs[True]}

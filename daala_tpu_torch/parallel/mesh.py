@@ -4,12 +4,14 @@ Two independent axes of parallelism, reflecting the codec's structure
 (SURVEY.md section 7: the only irreducibly sequential parts are the range
 coder and cross-block adaptation; everything else batches):
 
-1. **Device mesh** for the uniform-quantizer pipeline
-   (models/analysis.py) and the batched multi-clip encode: clips and
-   frames go to the rows (`dp`) of a (dp, sp) array of torch devices.
-   JAX also shards frame columns over `sp`, with XLA inserting the halo
-   collectives; torch has nothing that inserts them, so the port's mesh
-   has one column, and `sp > 1` raises (ROADMAP.md, multi-GPU batching).
+1. **Device mesh (dp, sp)**, a numpy array of torch devices, for the
+   uniform-quantizer pipeline (models/analysis.py) and the batched
+   multi-clip encode: clips and frames go to the rows (`dp`), frame
+   columns to the columns (`sp`).  Where XLA inserts the halo
+   collectives of the lapped filters for JAX, the port cuts the planes
+   into tiles on superblock boundaries and exchanges the halos itself
+   (parallel/sharding.py).  A mesh may name a device more than once: a
+   2 x 2 mesh on one card is `make_mesh(devices=["cuda:0"] * 4)`.
 
 2. **Host segment parallelism** for full conformant encodes: the
    bitstream resets all adaptation at keyframes, so a clip split at
@@ -36,6 +38,8 @@ import torch
 
 from daala_tpu_torch.device import resolve
 from daala_tpu_torch.models.analysis import encode_step, wrap32
+from daala_tpu_torch.parallel.sharding import (Sharding, as_plane,
+                                               named_put, put)
 
 
 # -- 1. device mesh ---------------------------------------------------------
@@ -43,8 +47,9 @@ from daala_tpu_torch.models.analysis import encode_step, wrap32
 def make_mesh(n_devices=None, dp=None, *, devices=None):
     """A (dp, sp) numpy array of torch.devices: the first `n_devices` of
     `devices` (default: every CUDA card; raises RuntimeError without
-    one), dp rows of sp = n_devices // dp columns, dp = n_devices by
-    default.  sp > 1 raises NotImplementedError."""
+    one), dp rows of sp = n_devices // dp columns; dp = 2 when
+    n_devices is even, else 1 (JAX's default).  `devices` may name a
+    device more than once."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: torch sees no CUDA device; pass "
@@ -55,61 +60,43 @@ def make_mesh(n_devices=None, dp=None, *, devices=None):
     if n > len(devs):
         raise RuntimeError("make_mesh: %d devices asked for, %d present"
                            % (n, len(devs)))
-    dp = n if dp is None else dp
+    if dp is None:
+        dp = 2 if n % 2 == 0 else 1
     if dp < 1 or n % dp:
         raise ValueError("make_mesh: dp=%d does not divide %d devices"
                          % (dp, n))
-    if n // dp > 1:
-        raise NotImplementedError(
-            "make_mesh: sp=%d; the port's mesh has one column (no halo "
-            "collectives shard a frame's columns yet: ROADMAP.md, "
-            "multi-GPU batching)" % (n // dp))
-    mesh = np.empty((dp, 1), dtype=object)
-    for i in range(dp):
-        mesh[i, 0] = devs[i]
+    mesh = np.empty((dp, n // dp), dtype=object)
+    for i in range(n):
+        mesh[i // (n // dp), i % (n // dp)] = devs[i]
     return mesh
 
 
-def _rows(mesh):
-    dp, sp = mesh.shape
-    if sp != 1:
-        raise NotImplementedError("the port's mesh has one column, got "
-                                  "sp=%d" % sp)
-    return [mesh[i, 0] for i in range(dp)]
-
-
 def shard_batch(frames_u8, mesh):
-    """Split a (B, H, W) uint8 batch (numpy or tensor) over the mesh's
-    rows: a list of dp (B / dp, H, W) tensors, one on each row's device."""
-    rows = _rows(mesh)
-    frames = (frames_u8 if isinstance(frames_u8, torch.Tensor)
-              else torch.from_numpy(np.ascontiguousarray(frames_u8)))
-    if frames.dim() != 3 or frames.dtype != torch.uint8:
+    """Place a (B, H, W) uint8 batch (numpy) on the mesh: the batch over
+    dp, columns over sp, cut on superblocks with the 2-pixel halo that
+    batch_encode_step's forward lapped filter needs (a ShardedPlane,
+    parallel/sharding.py).  B must split evenly over dp."""
+    frames = np.asarray(frames_u8)
+    if frames.ndim != 3 or frames.dtype != np.uint8:
         raise ValueError("shard_batch takes a (B, H, W) uint8 batch, got "
-                         "%s %s" % (frames.dtype, tuple(frames.shape)))
-    if frames.shape[0] % len(rows):
-        raise ValueError("shard_batch: %d frames do not split over %d rows"
-                         % (frames.shape[0], len(rows)))
-    return [part.to(dev) for part, dev in
-            zip(frames.chunk(len(rows)), rows)]
+                         "%s %s" % (frames.dtype, frames.shape))
+    return put(frames, Sharding(mesh, ("dp", None, "sp")), halo=2)
 
 
-def batch_encode_step(shards, bs=1, quant=3840):
-    """models/analysis.py encode_step over a batch split into shards
-    (shard_batch's list of (b, H, W) uint8 tensors), each frame on its
-    shard's device.  Returns (rec, sse, nz): rec a list of the shards'
-    uint8 reconstructions, sse and nz Python ints, the sums over the
-    batch with JAX's int32 wrap."""
-    recs, sums = [], []
-    for shard in shards:
-        outs = [encode_step(f, bs=bs, quant=quant) for f in shard]
-        recs.append(torch.stack([o[0] for o in outs]))
-        sums.append((torch.stack([o[1] for o in outs]).to(torch.int64).sum(),
-                     torch.stack([o[2] for o in outs]).to(torch.int64).sum()))
-    # Fetched after every shard's work is issued.
-    sse = sum(int(s) for s, _ in sums)
-    nz = sum(int(z) for _, z in sums)
-    return recs, int(wrap32(sse)), int(wrap32(nz))
+def batch_encode_step(frames, bs=1, quant=3840):
+    """models/analysis.py encode_step over a (B, H, W) uint8 batch: a
+    ShardedPlane from shard_batch (each frame in its tiles, on their
+    devices) or a tensor on one device.  Returns (rec, sse, nz): rec the
+    uint8 reconstructions laid out as `frames`, sse and nz Python ints,
+    the sums over the batch with JAX's int32 wrap, fetched after every
+    frame's work is issued."""
+    frames, back = as_plane(frames)
+    outs = [encode_step(frames.frame(b), bs=bs, quant=quant)
+            for b in range(frames.shape[0])]
+    rec = back(frames.stack([o[0] for o in outs]))
+    sse = sum(int(o[1]) for o in outs)
+    nz = sum(int(o[2]) for o in outs)
+    return rec, int(wrap32(sse)), int(wrap32(nz))
 
 
 # -- 2. host segment parallelism --------------------------------------------
@@ -190,13 +177,15 @@ def _prepare(devices):
 
 
 @contextlib.contextmanager
-def _on(dev):
-    """The context a clip's thread runs in: its card and a stream of its
-    own (nothing on the CPU)."""
-    if dev.type != "cuda":
-        yield
-        return
-    with torch.cuda.device(dev), torch.cuda.stream(torch.cuda.Stream(dev)):
+def _on(row):
+    """The context a clip's thread runs in: its row's first card and, on
+    every card of its row, a stream of its own (nothing on the CPU), so
+    that its tiles and their halo copies stay on its streams."""
+    with contextlib.ExitStack() as stack:
+        if row[0].type == "cuda":
+            stack.enter_context(torch.cuda.device(row[0]))
+        for dev in dict.fromkeys(d for d in row if d.type == "cuda"):
+            stack.enter_context(torch.cuda.stream(torch.cuda.Stream(dev)))
         yield
 
 
@@ -206,11 +195,14 @@ def encode_clips_batched(clips, info_kwargs, mesh, quant=18, complexity=7,
     encoder (trial-encode RDO, full entropy stage) with every device
     stage of the analysis tier (the SAD fields, the RDO transform
     pyramids, the final analysis, the dering candidates) on the mesh:
-    clip ci on the device of row ci % dp.
+    clip ci on row ci % dp, its planes cut over that row's sp columns
+    (the encoder's device_put_fn, as JAX's put: a 2-D plane's columns
+    over sp).  Each encoder's device is its row's first.
 
     With threads (the default for >1 clip) each clip encodes on its own
-    host thread, on its card and a CUDA stream of its own: clip B's
-    device work is issued while clip A's host entropy stage runs,
+    host thread, on a CUDA stream of its own on every card of its row:
+    clip B's device work is issued while clip A's host entropy stage
+    runs,
     because the ctypes calls into the native frame/ME engines and the
     blocking device-result reads release the GIL (the native engines'
     persistent scratch is thread_local).  threads=False keeps the
@@ -227,12 +219,16 @@ def encode_clips_batched(clips, info_kwargs, mesh, quant=18, complexity=7,
         raise ValueError("encode_clips_batched: the mesh gives each clip "
                          "its device; enc_kwargs may not")
     enc_kwargs["use_device_analysis"] = True
-    rows = _rows(mesh)
-    _prepare(rows)
-    devs = [rows[ci % len(rows)] for ci in range(len(clips))]
-    encs = [Encoder(H.Info(**info_kwargs), quant=quant,
-                    complexity=complexity, device=dev, **enc_kwargs)
-            for dev in devs]
+    dp = mesh.shape[0]
+    _prepare(list(mesh.ravel()))
+    rows = [list(mesh[ci % dp]) for ci in range(len(clips))]
+    encs = []
+    for row in rows:
+        enc = Encoder(H.Info(**info_kwargs), quant=quant,
+                      complexity=complexity, device=row[0], **enc_kwargs)
+        enc.device_put_fn = named_put(np.array(row, dtype=object),
+                                      (None, "sp"))
+        encs.append(enc)
     outs = [[] for _ in clips]
     if threads is None:
         threads = len(clips) > 1
@@ -241,12 +237,13 @@ def encode_clips_batched(clips, info_kwargs, mesh, quant=18, complexity=7,
 
         def run_clip(ci):
             try:
-                with _on(devs[ci]):
+                with _on(rows[ci]):
                     for fr in clips[ci]:
                         outs[ci].extend(encs[ci].encode_frame(fr))
                     outs[ci].extend(encs[ci].flush())
-                    if devs[ci].type == "cuda":
-                        torch.cuda.current_stream(devs[ci]).synchronize()
+                    for dev in dict.fromkeys(rows[ci]):
+                        if dev.type == "cuda":
+                            torch.cuda.current_stream(dev).synchronize()
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 errs[ci] = e
 

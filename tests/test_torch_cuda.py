@@ -6,7 +6,10 @@ CPU, the lean tier's PVQ band search and SAD fields on the card
 against the CPU, the decoder's device back end (dering and synthesis)
 on the card against the CPU and the host decoder, the parallel
 encodes (parallel/mesh.py) on the card against the CPU and serial
-encodes, and the training subsystem (train/: the zigzag statistics,
+encodes, the mesh's sp axis (parallel/sharding.py: the lap kernel from
+a tile's origin, the sharded device tier, batch and clips on a 2 x 2
+mesh of the card) against the plain versions and the CPU, and the
+training subsystem (train/: the zigzag statistics,
 the coding-gain search, the k-means codebook) on the card against the
 CPU.
 
@@ -633,8 +636,8 @@ def test_batch_encode_step_on_card_matches_cpu(card):
     rec, sse, nz = PM.batch_encode_step(shards)
     torch.cuda.synchronize()
     launches = devstats.snapshot()["launches"]
-    want = PM.batch_encode_step([torch.from_numpy(frames)])
-    assert torch.equal(rec[0].cpu(), want[0][0])
+    want = PM.batch_encode_step(torch.from_numpy(frames))
+    assert torch.equal(torch.from_numpy(rec.gather()), want[0])
     assert (sse, nz) == want[1:]
     assert launches.get("lap_frame") == launches.get("dct_frame") == 4
 
@@ -701,3 +704,159 @@ def test_vq_train_on_card_is_deterministic(card):
     assert a[1] == b[1] and np.array_equal(a[0], b[0])
     np.testing.assert_allclose(a[1], vq.train(data, 32, 6, device="cpu")[1],
                                rtol=0, atol=1e-5)
+
+
+# -- the mesh's sp axis: tiles on the card -----------------------------------
+
+def _mesh_of(card, dp, sp):
+    from daala_tpu_torch.parallel import mesh as PM
+    return PM.make_mesh(devices=[card] * (dp * sp), dp=dp)
+
+
+@pytest.mark.parametrize("h,w,sb", [(1088, 1920, 64), (544, 960, 32),
+                                    (136, 200, 64)])
+def test_lap_kernel_on_tiles_matches_plain(card, h, w, sb):
+    """The lap kernel from each tile's origin (a 2 x 2 mesh of the card,
+    and one tile per superblock row): its plain version on the same tile
+    bit for bit, and, cropped, the plane's kernel; dct_frame on each
+    tile's interior: its plain version."""
+    from daala_tpu_torch.parallel.sharding import Sharding, put
+    x = np.random.default_rng(h).integers(-2**14, 2**14,
+                                          (h, w)).astype(np.int32)
+    for mesh in ((2, 2), (h // sb, 1)):
+        sp = put(x, Sharding(_mesh_of(card, *mesh), ("dp", "sp")), halo=2,
+                 unit=sb)
+        for fwd in (True, False):
+            plane = lap_kernels.lap_frame_cuda(torch.from_numpy(x).to(card),
+                                               sb, sb, fwd).cpu().numpy()
+            for t in sp.tiles:
+                k = lap_kernels.lap_frame_cuda(t.data, sb, sb, fwd, t.origin,
+                                               t.plane)
+                assert torch.equal(k, lap_kernels.lap_frame_plain(
+                    t.data, sb, sb, fwd, t.origin, t.plane))
+                np.testing.assert_array_equal(t.crop(k).cpu().numpy(),
+                                              plane[t.slices()])
+                inner = t.crop()
+                for n in (4, 8, 16, 32):
+                    if inner.shape[0] % n or inner.shape[1] % n:
+                        continue  # a ragged plane's last tile
+                    assert torch.equal(
+                        dct_kernels.dct_frame_cuda(inner, n, fwd, t.start),
+                        dct_kernels.dct_frame_plain(inner, n, fwd))
+    torch.cuda.synchronize()
+
+
+def _kf_state(w, h):
+    """A codec state with a mixed block-size map (every level)."""
+    from daala_tpu_torch.codec import headers as TH
+    from daala_tpu_torch.codec.state import CodecState
+    info = TH.Info(pic_width=w, pic_height=h)
+    st = CodecState(info)
+    st.init_superblock_split(2)
+    st.bsize[:8, :8] = 0
+    st.bsize[8:16, :8] = 1
+    st.bsize[:8, 8:16] = 3
+    st.bsize[16:24, 16:24] = 4
+    return info, st
+
+
+def test_sharded_device_tier_on_card_matches_cpu(card):
+    """analyze_keyframe, analyze_inter, analyze_rdo_pyramid,
+    synthesize_frame and fullpel_sad_fields on a 2 x 2 mesh of the card
+    (named_put(mesh, ("dp", "sp"))): the unsharded CPU results; both
+    kernels launch once per tile and pass."""
+    from daala_tpu_torch.models import keyframe as KF
+    from daala_tpu_torch.models import mefield as MF
+    from daala_tpu_torch.models import synthesis as S
+    from daala_tpu_torch.parallel.sharding import named_put
+    info, st = _kf_state(320, 192)
+    rng = np.random.default_rng(4)
+    planes = [rng.integers(0, 256, (st.frame_height >> d, st.frame_width >> d),
+                           dtype=np.uint8) for d in (0, 1, 1)]
+    mc = [rng.integers(0, 256, p.shape, dtype=np.uint8) for p in planes]
+    d = [rng.integers(-3000, 3000, p.shape).astype(np.int32) for p in planes]
+    hook = named_put(_mesh_of(card, 2, 2), ("dp", "sp"))
+    devstats.reset()
+    got = KF.analyze_keyframe(st, info, planes, False, card,
+                              device_put_fn=hook)[-1]()
+    for g, w in zip(got, KF.analyze_keyframe(st, info, planes, False,
+                                             "cpu")[-1]()):
+        np.testing.assert_array_equal(g, w)
+    launches = devstats.snapshot()["launches"]
+    assert launches["lap_frame"] == 3 * 4
+    got = KF.analyze_inter(st, info, planes, mc, False, card,
+                           device_put_fn=hook)[-1]()
+    want = KF.analyze_inter(st, info, planes, mc, False, "cpu")[-1]()
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        np.testing.assert_array_equal(g, w)
+    for mc_pl in (None, [mc[0]]):
+        got = KF.analyze_rdo_pyramid(st, info, planes, mc_pl, False, card,
+                                     device_put_fn=hook)
+        want = KF.analyze_rdo_pyramid(st, info, planes, mc_pl, False, "cpu")
+        for g, w in zip(got, want):
+            if isinstance(w, dict):
+                for k in w:
+                    np.testing.assert_array_equal(g[k], w[k])
+            elif w is not None:
+                np.testing.assert_array_equal(g, w)
+    devstats.reset()
+    got = S.synthesize_frame(st, info, d, card, device_put_fn=hook)
+    for g, w in zip(got, S.synthesize_frame(st, info, d, "cpu")):
+        np.testing.assert_array_equal(g, w)
+    snap = devstats.snapshot()
+    assert snap["launches"]["lap_frame"] == 3 * 4
+    assert snap["counts"]["halo_bytes"] > 0
+    pad = 32
+    refs = [rng.integers(0, 256, (st.frame_height + 2 * pad,
+                                  st.frame_width + 2 * pad), dtype=np.uint8)
+            for _ in range(2)]
+    kw = dict(r=16)
+    args = (planes[0], refs, pad, (185, 310), st.frame_height // 8,
+            st.frame_width // 8)
+    for g, w in zip(MF.fullpel_sad_fields(*args, device=card,
+                                          device_put_fn=hook, **kw),
+                    MF.fullpel_sad_fields(*args, device="cpu", **kw)):
+        np.testing.assert_array_equal(g, w)
+    torch.cuda.synchronize()
+
+
+def test_batch_encode_step_in_tiles_on_card_matches_cpu(card):
+    """The uniform pipeline's batch over a 2 x 2 mesh of the card (the
+    columns cut 3 + 3 superblocks, the inverse lapped filter's halo
+    exchanged on the card): rec, sse and nz equal the CPU's in one
+    piece."""
+    from daala_tpu_torch.parallel import mesh as PM
+    frames = np.random.default_rng(3).integers(0, 256, (2, 256, 384),
+                                               np.uint8)
+    devstats.reset()
+    rec, sse, nz = PM.batch_encode_step(
+        PM.shard_batch(frames, _mesh_of(card, 2, 2)))
+    torch.cuda.synchronize()
+    snap = devstats.snapshot()
+    want = PM.batch_encode_step(torch.from_numpy(frames))
+    assert torch.equal(torch.from_numpy(rec.gather()), want[0])
+    assert (sse, nz) == want[1:]
+    assert snap["launches"]["lap_frame"] == 2 * 2 * 2
+    assert snap["counts"]["halo_bytes"] == 2 * 2 * 2 * 256 * 4
+
+
+def test_clips_batched_in_tiles_on_card_match_serial(card):
+    """Two small clips on a 2 x 2 mesh of the card, each clip's planes
+    over its row's 2 columns (its own stream), both schedules: the
+    packets of serial CPU encodes."""
+    from daala_tpu_torch.parallel import mesh as PM
+    w, h = 256, 128
+    clips = [textured_clip(w, h, 2, seed=s) for s in (1, 2)]
+    info = headers.Info(pic_width=w, pic_height=h)
+    want = []
+    for frames in clips:
+        enc = Encoder(info, device="cpu", quant=18, complexity=7)
+        pk = [bytes(p) for fr in frames for p in enc.encode_frame(fr)]
+        want.append(pk + [bytes(p) for p in enc.flush()])
+    for threads in (False, True):
+        devstats.reset()
+        outs = PM.encode_clips_batched(clips, dict(pic_width=w, pic_height=h),
+                                       _mesh_of(card, 2, 2), quant=18,
+                                       complexity=7, threads=threads)
+        assert [[bytes(p) for p in o] for o in outs] == want
+        assert devstats.snapshot()["launches"].get("lap_frame", 0) > 0

@@ -14,7 +14,11 @@ that is not a multiple of the superblock, 4:2:2 superblocks):
   the edges a tile filters (lap_edges) are exactly those whose bands
   touch it; the tile algorithm, run here on the plain version's lifting
   with those ranges, equals lap_frame_plain; the 1080p planes take one
-  wave of resident blocks.
+  wave of resident blocks.  On a tile of a sharded plane (a tensor that
+  starts at an even origin of a larger plane, parallel/sharding.py) the
+  edges a block filters (lap_edges_at) are the plane's edges whose
+  whole band lies in the tensor and touches the block, and the tile
+  algorithm with them equals lap_frame_plain with the same origin.
 
 The kernels themselves run only on a card (tests/test_torch_cuda.py).
 """
@@ -83,8 +87,44 @@ int main() {
              hi);
     }
   }
+  const int org[][8] = {%(org)s};
+  for (const auto &c : org) {
+    const int h = c[0], w = c[1], oy = c[2], ox = c[3], ph = c[4],
+              pw = c[5], sbx = c[6], sby = c[7];
+    const LapPlan p = lap_plan(h, w);
+    printf("oplan %%d %%d %%d %%d %%d %%d\n", h, w, oy, ox, p.th, p.tw);
+    for (int t = 0; t < p.tiles_y; t++) {
+      int lo, hi;
+      const int a = t * p.th, b = a + p.th < h ? a + p.th : h;
+      lap_edges_at(a, b, sby, ph / sby, oy, h, lo, hi);
+      printf("oedges %%d %%d %%d %%d y %%d %%d %%d\n", h, w, oy, ox, t, lo,
+             hi);
+    }
+    for (int t = 0; t < p.tiles_x; t++) {
+      int lo, hi;
+      const int a = t * p.tw, b = a + p.tw < w ? a + p.tw : w;
+      lap_edges_at(a, b, sbx, pw / sbx, ox, w, lo, hi);
+      printf("oedges %%d %%d %%d %%d x %%d %%d %%d\n", h, w, oy, ox, t, lo,
+             hi);
+    }
+  }
 }
 """
+
+# Tiles of sharded planes, (h, w, oy, ox, ph, pw, sb_x, sb_y): tensors
+# that hold rows [oy, oy + h) and columns [ox, ox + w) of a (ph, pw)
+# plane, each a tile's interior and its halo of 2 where it has a
+# neighbour.  The 1080p luma and chroma planes over a 2 x 2 mesh (the
+# rows 9 + 8 superblocks), a one-superblock tile with neighbours all
+# round, a frame-border tile, and a tile of a plane whose last
+# superblock is ragged.
+ORIGIN_CASES = [(578, 962, 0, 958, 1088, 1920, 64, 64),
+                (514, 962, 574, 0, 1088, 1920, 64, 64),
+                (290, 484, 0, 478, 544, 960, 32, 32),
+                (258, 482, 286, 478, 544, 960, 32, 32),
+                (68, 68, 62, 126, 192, 320, 64, 64),
+                (66, 66, 0, 0, 192, 320, 64, 64),
+                (74, 138, 62, 62, 136, 200, 64, 64)]
 
 DCT_FIELDS = ("h", "w", "n", "wb", "pitch", "smem_bytes", "regs",
               "blocks_per_sm", "units_x", "units", "tile", "direct_fwd",
@@ -99,16 +139,25 @@ def plans(tmp_path_factory):
     src = d / "drv.cc"
     src.write_text(_PLAN_MAIN % dict(
         dct=", ".join("{%d, %d, %d}" % c for c in DCT_CASES),
-        lap=", ".join("{%d, %d, %d, %d}" % c for c in LAP_CASES)))
+        lap=", ".join("{%d, %d, %d, %d}" % c for c in LAP_CASES),
+        org=", ".join("{%d, %d, %d, %d, %d, %d, %d, %d}" % c
+                      for c in ORIGIN_CASES)))
     exe = d / "drv"
     subprocess.run(["g++", "-O1", "-std=c++17", "-I", CSRC, str(src), "-o",
                     str(exe)], check=True, capture_output=True)
     out = subprocess.run([str(exe)], check=True, capture_output=True,
                          text=True).stdout.splitlines()
-    dct, lap, edges = {}, {}, {}
+    dct, lap, edges, oedges = {}, {}, {}, {}
     for line in out:
         kind, *vals = line.split()
-        if kind == "dct":
+        if kind == "oplan":
+            vals = tuple(map(int, vals))
+            oedges.setdefault(vals[:4], {})["plan"] = vals[4:]
+        elif kind == "oedges":
+            key = tuple(map(int, vals[:4]))
+            t, lo, hi = map(int, vals[5:])
+            oedges.setdefault(key, {}).setdefault(vals[4], {})[t] = (lo, hi)
+        elif kind == "dct":
             p = dict(zip(DCT_FIELDS, map(int, vals)))
             dct[p["h"], p["w"], p["n"]] = p
         elif kind == "lap":
@@ -118,7 +167,7 @@ def plans(tmp_path_factory):
             key = tuple(map(int, vals[:4]))
             t, lo, hi = map(int, vals[5:])
             edges.setdefault(key, {}).setdefault(vals[4], {})[t] = (lo, hi)
-    return dct, lap, edges
+    return dct, lap, edges, oedges
 
 
 def _fits_an_sm(threads, smem, regs, blocks):
@@ -282,3 +331,57 @@ def test_lap_tiles_equal_the_plain_version(plans, h, w, sb_x, sb_y):
                     _lift(s, start, axis, not fwd, lanes2)
                 out[y0:y1, x0:x1] = s[y0 - ly0:y1 - ly0, x0 - lx0:x1 - lx0]
         assert torch.equal(out, lap_frame_plain(x, sb_x, sb_y, fwd)), fwd
+
+
+@pytest.mark.parametrize("h,w,oy,ox,ph,pw,sb_x,sb_y", ORIGIN_CASES)
+def test_lap_tiles_at_an_origin_equal_the_plain_version(
+        plans, h, w, oy, ox, ph, pw, sb_x, sb_y):
+    """The kernel's algorithm on a tile of a sharded plane, with the
+    plan's blocks and lap_edges_at's edge ranges (band starts k * sb - 2
+    less the origin): each range is the plane's edges whose whole band
+    lies in the tensor and touches the block, and the result equals
+    lap_frame_plain with the tile's origin, forward and inverse."""
+    edges = plans[3][h, w, oy, ox]
+    th, tw = edges["plan"]
+    for axis, size, t_size, sb, o, plane in (("y", h, th, sb_y, oy, ph),
+                                             ("x", w, tw, sb_x, ox, pw)):
+        for t in range(-(-size // t_size)):
+            a, b = t * t_size, min((t + 1) * t_size, size)
+            lo, hi = edges[axis][t]
+            want = [k for k in _touching(a + o, b + o, sb, plane // sb)
+                    if o <= k * sb - 2 and k * sb + 2 <= o + size]
+            assert list(range(lo, hi + 1)) == want
+    rng = np.random.default_rng(h * w + oy)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, (h, w), dtype=np.int64)
+                         .astype(np.int32))
+    for fwd in (True, False):
+        out = torch.empty_like(x)
+        for ty in range(-(-h // th)):
+            for tx in range(-(-w // tw)):
+                y0, x0 = ty * th, tx * tw
+                y1, x1 = min(y0 + th, h), min(x0 + tw, w)
+                ly0, ly1 = max(y0 - 2, 0), min(y1 + 2, h)
+                lx0, lx1 = max(x0 - 4, 0), min(x1 + 4, w)
+                s = x[ly0:ly1, lx0:lx1].clone()
+                ky, kx = edges["y"][ty], edges["x"][tx]
+                rows = [(k * sb_y - 2 - oy - ly0, 0)
+                        for k in range(ky[0], ky[1] + 1)]
+                cols = [(k * sb_x - 2 - ox - lx0, 1)
+                        for k in range(kx[0], kx[1] + 1)]
+                if fwd:
+                    first, second = rows, cols
+                    lanes1 = (max(x0 - 2, 0) - lx0, min(x1 + 2, w) - lx0)
+                    lanes2 = (y0 - ly0, y1 - ly0)
+                else:
+                    first, second = cols, rows
+                    lanes1 = (max(y0 - 2, 0) - ly0, min(y1 + 2, h) - ly0)
+                    lanes2 = (x0 - lx0, x1 - lx0)
+                for start, axis in first:
+                    assert 0 <= start and start + 4 <= s.shape[axis]
+                    _lift(s, start, axis, not fwd, lanes1)
+                for start, axis in second:
+                    assert 0 <= start and start + 4 <= s.shape[axis]
+                    _lift(s, start, axis, not fwd, lanes2)
+                out[y0:y1, x0:x1] = s[y0 - ly0:y1 - ly0, x0 - lx0:x1 - lx0]
+        assert torch.equal(out, lap_frame_plain(x, sb_x, sb_y, fwd, (oy, ox),
+                                                (ph, pw))), fwd

@@ -1,14 +1,17 @@
 """The port's parallel encodes (daala_tpu_torch/parallel/mesh.py,
 parallel/dryrun.py) against the JAX package's (daala_tpu/parallel/
-mesh.py, __graft_entry__.py), on the CPU: the mesh and its refusals,
-batch_encode_step against JAX's on a 2-device mesh (with an sse that
-wraps int32), the batched multi-clip encode in both schedules against
-serial encodes, the segment-parallel encode, the dry run; and the
-port's devstats under threads and its copy of the natural clip.
+mesh.py, __graft_entry__.py), on the CPU: the mesh, JAX's default dp
+and the refusals, batch_encode_step against JAX's on a 2-device mesh
+(with an sse that wraps int32) and on a 2 x 2 mesh of CPU tiles, the
+batched multi-clip encode in both schedules against serial encodes,
+on rows of one column and of two (each clip's planes in tiles), the
+segment-parallel encode, the dry run with its spatially sharded leg;
+and the port's devstats under threads and its copy of the natural clip.
 
 Packets and planes are compared byte for byte, the tolerance is zero.
 """
 
+import functools
 import sys
 import threading
 
@@ -30,15 +33,22 @@ from daala_tpu_torch.parallel import dryrun, mesh as PM
 from daala_tpu_torch.utils import devstats, profile
 
 CPU2 = ["cpu", "cpu"]
+CPU4 = ["cpu"] * 4
 
 
 # -- the mesh ----------------------------------------------------------------
 
+def _jax_default_shape(n):
+    dp = 2 if n % 2 == 0 else 1
+    return (dp, n // dp)
+
+
 def test_make_mesh_takes_every_card_or_raises():
-    """make_mesh() is the cards, one per row; without one it raises."""
+    """make_mesh() is the cards in JAX's default (dp, sp); without one
+    it raises."""
     if torch.cuda.is_available():
         m = PM.make_mesh()
-        assert m.shape == (torch.cuda.device_count(), 1)
+        assert m.shape == _jax_default_shape(torch.cuda.device_count())
         assert all(d.type == "cuda" for d in m.ravel())
     else:
         with pytest.raises(RuntimeError):
@@ -48,9 +58,21 @@ def test_make_mesh_takes_every_card_or_raises():
     assert [d.type for d in m.ravel()] == ["cpu", "cpu"]
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8])
+def test_make_mesh_default_dp_is_jax(n):
+    """make_mesh(devices=["cpu"] * n) has JAX's make_mesh(n)'s shape
+    ((2, 2) for 4), a device named more than once fills every place, and
+    dp may be asked for."""
+    m = PM.make_mesh(devices=["cpu"] * n)
+    jm = JPM.make_mesh(n)
+    assert m.shape == jm.devices.shape == _jax_default_shape(n)
+    assert all(d == torch.device("cpu") for d in m.ravel())
+    assert PM.make_mesh(devices=["cpu"] * n, dp=1).shape == (1, n)
+    if n >= 2:
+        assert PM.make_mesh(2, devices=["cpu"] * n).shape == (2, 1)
+
+
 def test_make_mesh_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.make_mesh(devices=["cpu"] * 4, dp=2)  # sp = 2
     with pytest.raises(RuntimeError):
         PM.make_mesh(3, devices=CPU2)
     with pytest.raises(ValueError):
@@ -58,13 +80,24 @@ def test_make_mesh_refusals():
 
 
 def test_shard_batch():
-    m = PM.make_mesh(devices=CPU2)
-    frames = np.random.default_rng(0).integers(0, 256, (4, 16, 24), np.uint8)
-    shards = PM.shard_batch(frames, m)
-    assert [tuple(s.shape) for s in shards] == [(2, 16, 24)] * 2
-    np.testing.assert_array_equal(torch.cat(shards).numpy(), frames)
+    """The batch over dp and columns over sp, cut on superblocks, with
+    the forward lapped filter's halo of 2 beside each column cut."""
+    frames = np.random.default_rng(0).integers(0, 256, (4, 16, 200),
+                                               np.uint8)
+    sp = PM.shard_batch(frames, PM.make_mesh(devices=CPU2))
+    assert [tuple(t.data.shape) for t in sp.tiles] == [(2, 16, 200)] * 2
+    np.testing.assert_array_equal(sp.gather(), frames)
+    sp = PM.shard_batch(frames, PM.make_mesh(devices=CPU4))
+    assert [(t.start, t.stop) for t in sp.tiles] == [
+        ((0, 0, 0), (2, 16, 128)), ((0, 0, 128), (2, 16, 200)),
+        ((2, 0, 0), (4, 16, 128)), ((2, 0, 128), (4, 16, 200))]
+    assert [tuple(t.data.shape) for t in sp.tiles] == [(2, 16, 130),
+                                                       (2, 16, 74)] * 2
+    np.testing.assert_array_equal(sp.tiles[1].data.numpy(),
+                                  frames[:2, :, 126:])
+    np.testing.assert_array_equal(sp.gather(), frames)
     with pytest.raises(ValueError):
-        PM.shard_batch(frames[:3], m)
+        PM.shard_batch(frames[:3], PM.make_mesh(devices=CPU2))
 
 
 # -- batch_encode_step against JAX's ----------------------------------------
@@ -85,10 +118,10 @@ def test_batch_encode_step_matches_jax():
     jrec, jsse, jnz = _jax_batch_step(frames)
     m = PM.make_mesh(devices=CPU2)
     rec, sse, nz = PM.batch_encode_step(PM.shard_batch(frames, m))
-    np.testing.assert_array_equal(torch.cat(rec).numpy(), jrec)
+    np.testing.assert_array_equal(rec.gather(), jrec)
     assert (sse, nz) == (jsse, jnz)
-    rec1, sse1, nz1 = PM.batch_encode_step([torch.from_numpy(frames)])
-    np.testing.assert_array_equal(rec1[0].numpy(), jrec)
+    rec1, sse1, nz1 = PM.batch_encode_step(torch.from_numpy(frames))
+    np.testing.assert_array_equal(rec1.numpy(), jrec)
     assert (sse1, nz1) == (jsse, jnz)
     from daala_tpu_torch.models.analysis import encode_step
     per = [encode_step(torch.from_numpy(f)) for f in frames]
@@ -110,9 +143,31 @@ def test_batch_encode_step_sse_wraps_as_jax():
     m = PM.make_mesh(devices=CPU2)
     rec, sse, nz = PM.batch_encode_step(PM.shard_batch(frames, m),
                                         quant=quant)
-    np.testing.assert_array_equal(torch.cat(rec).numpy(), jrec)
+    np.testing.assert_array_equal(rec.gather(), jrec)
     assert (jrec == 128).all() and jnz == nz == 0
     assert sse == jsse == (true_sse + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+@pytest.mark.parametrize("shape,bs", [((4, 128, 192), 1),
+                                      ((2, 192, 320), 2)])
+def test_batch_encode_step_in_tiles_matches_jax(shape, bs):
+    """The batch over the 2 rows and its columns over the 2 columns of
+    make_mesh(devices=["cpu"] * 4): 3 superblock columns cut 2 + 1 (5:
+    3 + 2), each frame's lapped filters across the cut from the uploaded
+    halo and the exchanged one; rec, sse and nz equal JAX's batch step
+    and the port's in one piece."""
+    frames = np.random.default_rng(bs).integers(0, 256, shape, np.uint8)
+    jrec, jsse, jnz = _jax_batch_step(frames, bs=bs)
+    devstats.reset()
+    sp = PM.shard_batch(frames, PM.make_mesh(devices=CPU4))
+    assert len(sp.tiles) == 4
+    rec, sse, nz = PM.batch_encode_step(sp, bs=bs)
+    np.testing.assert_array_equal(rec.gather(), jrec)
+    assert (sse, nz) == (jsse, jnz)
+    # Each frame's inverse filter took 2 columns from its neighbour
+    # tile, each way, over its rows (int32).
+    assert devstats.snapshot()["counts"]["halo_bytes"] == \
+        shape[0] * 2 * 2 * shape[1] * 4
 
 
 # -- encode_clips_batched ----------------------------------------------------
@@ -169,6 +224,26 @@ def test_encode_clips_batched_matches_jax_batched(clips, serial):
             quant=18, complexity=7, threads=threads)
         for ci in range(len(clips)):
             assert [bytes(p) for p in outs[ci]] == serial["port"][ci]
+
+
+@pytest.mark.parametrize("threads", [False, True],
+                         ids=["round_robin", "threads"])
+def test_encode_clips_batched_in_tiles_matches_serial(clips, serial,
+                                                     threads):
+    """The same 2 clips on make_mesh(devices=["cpu"] * 4), a (2, 2)
+    mesh: each clip's planes cut over its row's 2 columns (the 256-wide
+    frame in 2 + 2 superblock columns), byte-identical to the serial
+    encodes; the tiles exchanged no halo (an encoder's analysis takes
+    its halos with the upload)."""
+    devstats.reset()
+    outs = PM.encode_clips_batched(clips, dict(pic_width=W, pic_height=H),
+                                   PM.make_mesh(devices=CPU4), quant=18,
+                                   complexity=7, threads=threads)
+    for ci in range(len(clips)):
+        got = [bytes(p) for p in outs[ci]]
+        assert got == serial["port"][ci]
+        assert got == serial["host"][ci]
+    assert "halo_bytes" not in devstats.snapshot()["counts"]
 
 
 class _Boom(Exception):
@@ -245,21 +320,36 @@ def test_entry_matches_jax():
     assert int(total) == int(jtotal)
 
 
+@functools.lru_cache(maxsize=None)
+def _host_kf_p():
+    """JAX's host encoder's keyframe + P-frame packets of the dry run's
+    frames, computed once for both dry-run tests."""
+    enc = HostEncoder(JH.Info(pic_width=256, pic_height=192), quant=18,
+                      complexity=7)
+    enc.keyframe_rate = 64
+    return [bytes(enc.encode_frame(fr)[0])
+            for fr in (dryrun._test_frame(256, 192, seed=1),
+                       dryrun._test_frame(256, 192, seed=2))]
+
+
 def test_dryrun_multichip_on_cpu_rows():
     """dryrun_multichip(2, device="cpu"); its keyframe + P-frame packets
     are JAX's host encoder's."""
     out = dryrun.dryrun_multichip(2, device="cpu")
-    enc = HostEncoder(JH.Info(pic_width=256, pic_height=192), quant=18,
-                      complexity=7)
-    enc.keyframe_rate = 64
-    want = [bytes(enc.encode_frame(fr)[0])
-            for fr in (dryrun._test_frame(256, 192, seed=1),
-                       dryrun._test_frame(256, 192, seed=2))]
-    assert out["kf_p"] == want
+    assert out["kf_p"] == _host_kf_p()
     assert len(out["clips"]) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             dryrun.dryrun_multichip(1)
+
+
+def test_dryrun_multichip_sharded_on_cpu():
+    """dryrun_multichip(4, device="cpu"): a (2, 2) mesh; the spatially
+    sharded leg's keyframe + P-frame packets are JAX's host encoder's,
+    and the batched clips ran over rows of 2 columns."""
+    out = dryrun.dryrun_multichip(4, device="cpu")
+    assert out["kf_p"] == out["sharded"] == _host_kf_p()
+    assert len(out["clips"]) == 2
 
 
 # -- devstats under threads, the natural clip --------------------------------

@@ -467,17 +467,18 @@ def test_lean_tables_match_jax(monkeypatch):
     port_search = PS.search_frame
 
     def both(st, info, quantizer, d_planes, md_planes, lam,
-             is_keyframe=False, use_masking=True):
+             is_keyframe=False, use_masking=True, device_put_fn=None):
         with jax.enable_x64(True):
             want = JPS.search_frame(
                 st, info, quantizer,
-                [p.numpy() for p in d_planes],
-                None if md_planes is None else [p.numpy()
+                [p.gather() for p in d_planes],
+                None if md_planes is None else [p.gather()
                                                 for p in md_planes],
                 lam, is_keyframe=is_keyframe, use_masking=use_masking)
         finish = port_search(st, info, quantizer, d_planes, md_planes, lam,
                              is_keyframe=is_keyframe,
-                             use_masking=use_masking)
+                             use_masking=use_masking,
+                             device_put_fn=device_put_fn)
 
         def done():
             got = finish()
@@ -593,13 +594,14 @@ def test_lean_tier_1080p_matches_jax():
     agree = []
 
     def both(st, info, quantizer, d_planes, md_planes, lam,
-             is_keyframe=False, use_masking=True):
+             is_keyframe=False, use_masking=True, device_put_fn=None):
         got = real(st, info, quantizer, d_planes, md_planes, lam,
-                   is_keyframe=is_keyframe, use_masking=use_masking)()
+                   is_keyframe=is_keyframe, use_masking=use_masking,
+                   device_put_fn=device_put_fn)()
         with jax.enable_x64(True):
             want = JPS.search_frame(
-                st, info, quantizer, [p.numpy() for p in d_planes],
-                None if md_planes is None else [p.numpy()
+                st, info, quantizer, [p.gather() for p in d_planes],
+                None if md_planes is None else [p.gather()
                                                 for p in md_planes],
                 lam, is_keyframe=is_keyframe, use_masking=use_masking)
         a, b = chip_smoke.table_rows(got), chip_smoke.table_rows(want)
