@@ -173,12 +173,22 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    sees 2 or more cards, (a) over distinct cards; otherwise a line says
    that it did not run.  Prints the sharded and unsharded walls per
    frame, the halo bytes per frame and the launches, as information.
+10. The encoder's Python coefficient path: phase 4c's clip (640x368,
+   3 frames, a keyframe every 2, so a mid-stream keyframe) in the lean
+   tier with the sweep, quant 25, complexity 7, encoded by a fresh
+   encoder with use_native_frame = False and by one with the native
+   frame pass, the encoder check on in both: byte-identical packets,
+   valid table entries handed to the Python path's forced-band replay
+   (devstats "forced_bands" > 0), and lap_frame, dct_frame and
+   obmc_leaf_cells launched in the Python run.  Prints both walls and
+   the bytes.
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
    obmc_leaf_cells from phase 4b) and, beside them, its launches in
    phase 6's decode ("decode_launches"), in phases 7a-7b (both
-   schedules; "batch_launches"), in phase 8a ("train_launches") and in
-   phase 9's sharded paths ("shard_launches"),
+   schedules; "batch_launches"), in phase 8a ("train_launches"), in
+   phase 9's sharded paths ("shard_launches") and in phase 10's Python
+   run ("python_path_launches"),
    error, times and bound; then, as the
    last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
@@ -1397,6 +1407,54 @@ def phase_lean_sweep_1080p(torch, dev):
     print("devstats: " + json.dumps(snap, sort_keys=True))
 
 
+def phase_python_path(torch, dev):
+    """Phase 10: the lean tier with the sweep on 4c's clip (640x368, 3
+    frames, a keyframe every 2) through the Python coefficient path
+    (use_native_frame = False), then through the native frame pass, each
+    with a fresh encoder and the encoder check on; returns the Python
+    run's launches."""
+    from daala_tpu_torch.codec import headers
+    from daala_tpu_torch.utils import devstats
+    w, h = 640, 368
+    frames = textured_clip(w, h, 3)
+    info = headers.Info(pic_width=w, pic_height=h)
+    runs = {}
+    for name in ("python", "native"):
+        enc = lean_encoder(info, dev, quant=25, complexity=7,
+                           mv_refine_mode="sweep")
+        enc.use_native_frame = name == "native"
+        enc.keyframe_rate = 2
+        enc.enable_encoder_check = True
+        devstats.reset()
+        t0 = time.perf_counter()
+        pk = [bytes(p) for fr in frames for p in enc.encode_frame(fr)]
+        pk += [bytes(p) for p in enc.flush()]
+        torch.cuda.synchronize()
+        runs[name] = (pk, time.perf_counter() - t0, devstats.snapshot())
+    (py_pk, py_s, snap), (nat_pk, nat_s, nat) = (runs["python"],
+                                                  runs["native"])
+    print("python path %dx%d lean+sweep on %s: %d bytes (%.2f s), native "
+          "frame pass %d bytes (%.2f s), packets %s; encoder check passed "
+          "on both; forced_bands %d; launches %s, native run %s" % (
+              w, h, dev, sum(map(len, py_pk)), py_s, sum(map(len, nat_pk)),
+              nat_s, "identical" if py_pk == nat_pk else "differ",
+              snap["counts"].get("forced_bands", 0), snap["launches"],
+              nat["launches"]))
+    if py_pk != nat_pk:
+        bad = [i for i, (a, b) in enumerate(zip(py_pk, nat_pk)) if a != b]
+        raise AssertionError("the Python path's packets differ from the "
+                             "native pass's (%d vs %d packets; first "
+                             "differing: %s)" % (len(py_pk), len(nat_pk),
+                                                 bad[:3]))
+    if snap["counts"].get("forced_bands", 0) <= 0:
+        raise AssertionError("the Python path replayed no forced band")
+    for name in ("lap_frame", "dct_frame", "obmc_leaf_cells"):
+        if snap["launches"].get(name, 0) <= 0:
+            raise AssertionError("%s never launched on the Python path"
+                                 % name)
+    return snap["launches"]
+
+
 def _watch_directions(calls):
     """Replace lap_frame_cuda and dct_frame_cuda by wrappers that append
     (kernel name, forward) of every call to `calls`; returns the function
@@ -1963,12 +2021,13 @@ def phase_sharded(torch, dev, ref, batch_ref, clips_ref):
 
 
 def kernel_line(kern, launches, decode_launches, batch_launches,
-                train_launches, shard_launches):
+                train_launches, shard_launches, python_path_launches):
     """The kernels line: each kernel's launches on the encoder's path, in
     the decode, in the batched phases 7a-7b, in the training
-    statistics (phase 8a) and on the sharded paths of phase 9
-    ("shard_launches": 9a, 9b, 9d and 9e, each tile a launch), and its
-    numbers summed
+    statistics (phase 8a), on the sharded paths of phase 9
+    ("shard_launches": 9a, 9b, 9d and 9e, each tile a launch) and on
+    the encoder's Python coefficient path (phase 10's Python run), and
+    its numbers summed
     over phase 2's and 2b's timed
     variants (each shape, size, direction or bit depth once):
     per-call medians through the wrapper ("ms"), the kernels' device time
@@ -1996,6 +2055,7 @@ def kernel_line(kern, launches, decode_launches, batch_launches,
             "batch_launches": batch_launches.get(name, 0),
             "train_launches": train_launches.get(name, 0),
             "shard_launches": shard_launches.get(name, 0),
+            "python_path_launches": python_path_launches.get(name, 0),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -2066,13 +2126,14 @@ def main(argv=None):
     run("8d", phase_sweep_quality, torch, dev)
     shard_launches = run("9", phase_sharded, torch, dev, ref, batch_ref,
                          clips_ref)
+    python_path_launches = run("10", phase_python_path, torch, dev)
     leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:
         raise AssertionError("imported: %s" % leaked)
     print(json.dumps(kernel_line(kern, launches, decode_launches,
                                  batch_launches, train_launches,
-                                 shard_launches)))
+                                 shard_launches, python_path_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

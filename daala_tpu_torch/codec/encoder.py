@@ -14,11 +14,11 @@ RDO merge pass (od_encode_recursive rdo_only, src/encode.c:1660) with
 full EC + adaptation checkpoints; complexity 0-1 uses the open-loop
 variance splitter; fixed_bsize overrides for tests.
 
-The coefficient and motion-estimation passes run in the native engine
-(native/frame_enc.inc, me_enc.inc), byte-identical to the Python
-reference implementation of daala_tpu/codec/encoder.py; the device
-front end (models/keyframe.py) precomputes the transform pyramids for
-both the RDO and final passes, again byte-identically.
+The production coefficient and motion-estimation passes run in the
+native engine (native/frame_enc.inc, me_enc.inc), byte-identical to the
+Python reference implementation in this file; the device front end
+(models/keyframe.py) precomputes the transform pyramids for both the
+RDO and final passes, again byte-identically.
 
 The port's copy of daala_tpu/codec/encoder.py;
 tests/test_torch_copies.py holds it to the original.  It is the port's
@@ -40,11 +40,20 @@ its JAX one; every other method is the original's:
     use_device_analysis=False, use_device_pvq=True.
   With either on, the full-pel SAD fields of inter frames
   (models/mefield.py) run on `device` and the native motion search
-  reads them as exact lookups.  Only the native pass reads the planes,
-  so `_encode_coefficients` raises unless it runs, and the original's
-  Python coefficient path (`_compute_dcts`, `_block_encode`,
+  reads them as exact lookups.
+- The Python coefficient path (`_compute_dcts`, `_block_encode`,
   `_encode_recursive`, the Haar DC quantizers, `_encode_dering`,
-  `_dering_rdo`) is left out.
+  `_dering_rdo`) is the original's, the differential-test reference
+  of the native pass.  It runs where the caller asks for it:
+  `enc.use_native_frame = False`, DAALA_TPU_NATIVE_FRAME=0 at import,
+  or DAALA_TPU_DUMP_BSIZE_DIST (the block-size distortion dump).  Under
+  either tier the device front end still runs; the Python path
+  computes its own transforms and, in the lean tier, replays the
+  decision table band by band (`forced_bands`, read through
+  DevicePVQTable.get), searching on the host a keyframe band whose
+  intra reference is live, as the native replay does.  Without the
+  native engine the native pass raises, where the original falls back
+  to the Python path silently.
 - `mv_refine_mode` 'sweep' runs the colour-sweep MV refinement on
   `device` (mvest.refine_sweep) after the native motion search, where
   the original runs its JAX one; it raises without the native motion
@@ -72,9 +81,13 @@ import math
 import numpy as np
 
 from daala_tpu_torch.codec import headers, quantizer
-from daala_tpu_torch.codec.state import (
-    CodecState, OD_QM_SIZE, OD_FLAT_QM, OD_HVS_QM, coeff_to_ref_plane,
-    img_plane_copy_pad)
+from daala_tpu_torch.codec import pvq_codec as PC
+from daala_tpu_torch.codec.state import (CodecState, OD_DC_QM, OD_QM_SIZE,
+                                         OD_FLAT_QM, OD_HVS_QM,
+                                         coeff_to_ref_plane,
+                                         img_plane_copy_pad,
+                                         ref_plane_to_coeff)
+from daala_tpu_torch.codec.decoder import pvq_beta
 from daala_tpu_torch.codec import mc as MC
 from daala_tpu_torch.codec import mvest
 from daala_tpu_torch.device import resolve
@@ -82,15 +95,86 @@ from daala_tpu_torch.utils import logging as LOG
 from daala_tpu_torch.entropy import ec as ec_mod
 from daala_tpu_torch.entropy.adapt import encode_cdf_adapt
 from daala_tpu_torch.ops import _tables as T
+from daala_tpu_torch.ops import dct, filter as filt, intra
+from daala_tpu_torch.ops import partition as part
 from daala_tpu_torch.ops import pvq as P
+from daala_tpu_torch.ops.haar import haar_kernel
 from daala_tpu_torch.ops.intrin import OD_COEFF_SHIFT
 
 OD_NBSIZES = 5
 OD_MAX_REORDER = 16
 OD_PVQ_LAMBDA = 0.147
 
-# The native whole-frame coefficient pass (frame_enc.inc) is the only
-# one here; with DAALA_TPU_NATIVE_FRAME=0 the encoder raises.
+def _if_prune_thr(bsi, quantizer):
+    """Inter analogue of _kf_prune_thr (frame_enc.inc if_prune_thr):
+    the fast trial pass's broader distortion-only subtree prune, beyond
+    the conservative skip-gated one (coverage 27%/18%/19%/16% at
+    8/16/32/64 with <=3% wrongly-pruned per logged quantizer)."""
+    if quantizer <= 0:
+        return 0.0
+    L = math.log2(quantizer)
+    if bsi == 1:
+        t = 1.9 - 0.12 * L
+    elif bsi == 2:
+        t = 2.4 - 0.20 * L
+    elif bsi == 3:
+        t = 3.2 - 0.28 * L
+    else:
+        t = 3.5 - 0.32 * L
+    return t if t > 0.0 else 0.0
+
+
+def _kf_prune_thr(bsi, quantizer):
+    """Keyframe subtree-prune threshold (mirrored bit-exactly by
+    frame_enc.inc kf_prune_thr): envelopes linear in log2(quantizer),
+    grid-fitted to maximize merge coverage subject to a <=3%
+    wrongly-pruned rate at every logged quantizer (coverage
+    16%/25%/10%/52% at 8/16/32/64).  Only active in the fast trial
+    pass — a wrong prune changes the stream, so the exact path keeps
+    the exhaustive subtree trial."""
+    if quantizer <= 0:
+        return 0.0
+    L = math.log2(quantizer)
+    if bsi == 1:
+        t = 9.5 - 0.88 * L
+    elif bsi == 2:
+        t = 4.9 - 0.40 * L
+    elif bsi == 3:
+        t = 2.0 - 0.16 * L
+    else:
+        t = 12.3 - 1.20 * L
+    return t if t > 0.0 else 0.0
+
+
+def _bs_prune_thr(bsi, quantizer):
+    """Block-size RDO subtree-prune threshold (mirrored bit-exactly by
+    frame_enc.inc bs_prune_thr; see _encode_recursive): a skipped
+    unsplit inter trial with dist < thr * lambda * npix commits the
+    merge without trialing the split subtree.  Quantizer-dependent
+    envelopes fitted 15-30% below the smallest wrongly-pruned value in
+    decision logs over the full BD corpus (smooth/texture/mixed/natural
+    x q10..q80; zero wrong prunes at 61%/46%/32% coverage per level):
+    at low quantizers residual coding is cheap, so a split only beats a
+    skipped merge at much larger distortion and the safe threshold
+    rises.  64x64 merges are never pruned (at high quantizers the
+    split can win on lapping choice alone with everything skipped)."""
+    if quantizer <= 0:
+        return 0.0
+    lg = math.log2(float(quantizer))
+    if bsi == 1:
+        t = 5.36 - 0.72 * lg
+        return 1.0 if t < 1.0 else (2.4 if t > 2.4 else t)
+    if bsi == 2:
+        t = 3.6 - 0.48 * lg
+        return 0.5 if t < 0.5 else (1.3 if t > 1.3 else t)
+    if bsi == 3:
+        return 0.32
+    return 0.0
+
+
+# The native whole-frame coefficient pass (frame_enc.inc) is the
+# production path; DAALA_TPU_NATIVE_FRAME=0 runs the pure-Python
+# implementation (used by the differential tests).
 import os as _os
 _NATIVE_FRAME_DEFAULT = _os.environ.get("DAALA_TPU_NATIVE_FRAME",
                                         "1") != "0"
@@ -100,6 +184,10 @@ _QM_ENTRIES = [
     # [use_masking][anchor] = (interp_q, scales per plane, qm rows)
     [(4, (256, 448, 320)), (318, (256, 140, 100)), None],
 ]
+
+
+def _div_round_0(x, y):
+    return PC.div_r0(x, y)
 
 
 def interp_qm(q, use_masking, pli):
@@ -217,8 +305,8 @@ class Encoder:
         # the reference encoder.
         self.trial_rate_approx = bool(trial_rate_approx)
         # Multiplier on the fast trial pass's fitted subtree-prune
-        # envelopes (the native kf_prune_thr/if_prune_thr read it from
-        # dcfg[3]).  1.0 = the fitted <=3%
+        # envelopes (_kf_prune_thr/_if_prune_thr; native kf_prune_thr/
+        # if_prune_thr read it from dcfg[3]).  1.0 = the fitted <=3%
         # wrongly-pruned envelopes; larger values trade BD-rate for
         # trial-pass speed (swept in tools/sweep_trial.py — the
         # production preset in bench.py uses the measured knee).  Only
@@ -236,6 +324,9 @@ class Encoder:
         # inter gate applied to keyframes, tools/sweep_trial.py), so
         # only true near-skip nodes may take the boosted prune.
         self.trial_prune_gate_kf = float(trial_prune_gate_kf)
+        # Active cost-only trial accumulator ([q3_bits] while the fast
+        # trial pass runs, else None); see _encode_coefficients.
+        self._cost_q3 = None
         # OD_SET_MV_RES_MIN analogue (reference: daalaenc.h:188,
         # src/mcenc.c:1808,6349): floor on the coded MV resolution
         # (0 = 1/8 pel .. 2 = 1/2 pel).
@@ -357,6 +448,24 @@ class Encoder:
         self.dering_lambda = 0.67 * OD_PVQ_LAMBDA * self.target_quantizer ** 2
 
     # -- EC + adaptation checkpointing (reference: src/encode.c:742-750) ----
+
+    def _checkpoint(self):
+        """Scoped checkpoint for the PVQ skip-RDO rollback: between the
+        checkpoint and rollback, pvq_encode_block only touches the EC, the
+        skip CDFs, and the PVQ adaptation subcontext, so only those are
+        saved (the reference memcpys the whole adapt ctx because that is
+        cheap in C, reference: src/encode.c:742-750)."""
+        adapt = self.state.adapt
+        return (self.enc.checkpoint(), adapt.skip_cdf.copy(),
+                adapt.pvq.snapshot())
+
+    def _rollback(self, cp):
+        ec_cp, skip_cdf, pvq_snap = cp
+        self.enc.rollback(ec_cp)
+        adapt = self.state.adapt
+        np.copyto(adapt.skip_cdf, skip_cdf)
+        adapt.pvq.restore(pvq_snap)
+
 
     def _checkpoint_full(self):
         """Full EC + adaptation checkpoint for block-size RDO, matching the
@@ -514,11 +623,609 @@ class Encoder:
 
     # -- keyframe DC tree ---------------------------------------------------
 
+    def _quantize_haar_dc_sb(self, pli, sbx, sby, xdec, has_ur, d):
+        """Reference: src/encode.c:1537-1592."""
+        st = self.state
+        enc = self.enc
+        if st.quantizer == 0:
+            dc_quant = 1
+        else:
+            dc_quant = max(1, st.quantizer *
+                           st.pvq_qm_q4[pli][P.qm_get_index(OD_NBSIZES - 1,
+                                                            0)] >> 4)
+        nhsb = st.nhsb
+        sb_dc_mem = st.sb_dc_mem[pli]
+        ln = 6 - xdec
+        if sby > 0 and sbx > 0:
+            if has_ur:
+                sb_dc_pred = (22 * sb_dc_mem[sby * nhsb + sbx - 1]
+                              - 9 * sb_dc_mem[(sby - 1) * nhsb + sbx - 1]
+                              + 15 * sb_dc_mem[(sby - 1) * nhsb + sbx]
+                              + 4 * sb_dc_mem[(sby - 1) * nhsb + sbx + 1]
+                              + 16) >> 5
+            else:
+                sb_dc_pred = (23 * sb_dc_mem[sby * nhsb + sbx - 1]
+                              - 10 * sb_dc_mem[(sby - 1) * nhsb + sbx - 1]
+                              + 19 * sb_dc_mem[(sby - 1) * nhsb + sbx]
+                              + 16) >> 5
+        elif sby > 0:
+            sb_dc_pred = sb_dc_mem[(sby - 1) * nhsb + sbx]
+        elif sbx > 0:
+            sb_dc_pred = sb_dc_mem[sby * nhsb + sbx - 1]
+        else:
+            sb_dc_pred = 0
+        dc0 = int(d[sby << ln, sbx << ln]) - int(sb_dc_pred)
+        q = _div_round_0(dc0, dc_quant)
+        adapt = st.adapt
+        if self._cost_q3 is not None:
+            # Cost-only fast trial (frame_enc.inc quantize_haar_dc_sb).
+            cb, adapt.ex_sb_dc[pli] = adapt.model_dc[pli].cost_encode(
+                abs(q), -1, adapt.ex_sb_dc[pli], 2)
+            self._cost_q3[0] += 8.0 * cb
+            if q:
+                self._cost_q3[0] += 8.0
+        else:
+            adapt.ex_sb_dc[pli] = adapt.model_dc[pli].encode(
+                enc, abs(q), -1, adapt.ex_sb_dc[pli], 2)
+            if q:
+                enc.encode_bits(1 if q < 0 else 0, 1)
+        sb_dc_curr = q * dc_quant + int(sb_dc_pred)
+        d[sby << ln, sbx << ln] = sb_dc_curr
+        sb_dc_mem[sby * nhsb + sbx] = sb_dc_curr
+        vgrad = hgrad = 0
+        if sby > 0:
+            vgrad = int(sb_dc_mem[(sby - 1) * nhsb + sbx]) - sb_dc_curr
+        if sbx > 0:
+            hgrad = int(sb_dc_mem[sby * nhsb + sbx - 1]) - sb_dc_curr
+        return hgrad, vgrad
+
+    def _quantize_haar_dc_level(self, pli, bx, by, bsi, xdec, hgrad, vgrad,
+                                d):
+        """Reference: src/encode.c:1593-1659 (with the per-coefficient DC
+        RDO)."""
+        st = self.state
+        enc = self.enc
+        if st.quantizer == 0:
+            dc_quant = 1
+            ac_quant = [1, 1]
+        else:
+            dc_quant = max(1, st.quantizer *
+                           st.pvq_qm_q4[pli][P.qm_get_index(OD_NBSIZES - 1,
+                                                            0)] >> 4)
+            ac_quant = [(dc_quant * OD_DC_QM[bsi - xdec][0] + 8) >> 4,
+                        (dc_quant * OD_DC_QM[bsi - xdec][1] + 8) >> 4]
+        ln = bsi - xdec + 2
+        adapt = st.adapt
+        x = [int(d[by << ln, bx << ln]),
+             int(d[by << ln, (bx + 1) << ln]),
+             int(d[(by + 1) << ln, bx << ln]),
+             int(d[(by + 1) << ln, (bx + 1) << ln])]
+        x[1] -= _div_trunc(hgrad, 5)
+        x[2] -= _div_trunc(vgrad, 5)
+        for i in range(1, 4):
+            q_step = ac_quant[1 if i == 3 else 0]
+            sign = x[i] < 0
+            mag = abs(x[i])
+            quant = mag // q_step
+            exl = adapt.ex_dc[pli][bsi]
+            cost = adapt.model_dc[pli].cost_bits(quant + 1, -1, exl[i - 1]) \
+                - adapt.model_dc[pli].cost_bits(quant, -1, exl[i - 1])
+            if quant == 0:
+                cost += 1
+            if (q_step * q_step - 2 * q_step * (mag - quant * q_step)
+                    + q_step * q_step * self.pvq_norm_lambda * cost < 0):
+                quant += 1
+            if self._cost_q3 is not None:
+                # Cost-only fast trial (frame_enc.inc
+                # quantize_haar_dc_level).
+                cb, exl[i - 1] = adapt.model_dc[pli].cost_encode(
+                    quant, -1, exl[i - 1], 2)
+                self._cost_q3[0] += 8.0 * cb
+                if quant:
+                    self._cost_q3[0] += 8.0
+            else:
+                exl[i - 1] = adapt.model_dc[pli].encode(enc, quant, -1,
+                                                        exl[i - 1], 2)
+                if quant:
+                    enc.encode_bits(1 if sign else 0, 1)
+            x[i] = quant * q_step
+            if sign:
+                x[i] = -x[i]
+        x[1] += _div_trunc(hgrad, 5)
+        x[2] += _div_trunc(vgrad, 5)
+        hgrad = x[1]
+        vgrad = x[2]
+        x0, x1, x2, x3 = haar_kernel(x[0], x[1], x[2], x[3])
+        d[by << ln, bx << ln] = x0
+        d[by << ln, (bx + 1) << ln] = x1
+        d[(by + 1) << ln, bx << ln] = x2
+        d[(by + 1) << ln, (bx + 1) << ln] = x3
+        return hgrad, vgrad
+
     # -- DCT pyramid (reference: src/encode.c:1455-1513) --------------------
+
+    def _compute_dcts(self, ctx, pli, bx, by, bsi, xdec):
+        st = self.state
+        d = ctx["d"][pli]
+        c = ctx["c"]
+        obs = st.bsize4(bx << bsi, by << bsi)
+        bs = max(obs, xdec)
+        assert bs <= bsi
+        if bs == bsi:
+            bs -= xdec
+            y0 = by << (2 + bs)
+            x0 = bx << (2 + bs)
+            n = 4 << bs
+            if ctx.get("use_haar_wavelet", False):
+                from daala_tpu_torch.ops.haar import haar2d
+                d[y0:y0 + n, x0:x0 + n] = haar2d(
+                    c[y0:y0 + n, x0:x0 + n][None])[0]
+            else:
+                d[y0:y0 + n, x0:x0 + n] = dct.fdct2d(
+                    c[y0:y0 + n, x0:x0 + n][None])[0]
+        else:
+            bs = bsi - xdec
+            y0 = by << (2 + bs)
+            x0 = bx << (2 + bs)
+            hfilter = ((bx + 1) << (2 + bs)) <= self.info.pic_width
+            vfilter = ((by + 1) << (2 + bs)) <= self.info.pic_height
+            if not ctx["is_keyframe"]:
+                filt.prefilter_split(ctx["mc"][pli], y0, x0, bs, 0,
+                                     hfilter, vfilter)
+            filt.prefilter_split(c, y0, x0, bs, 0, hfilter, vfilter)
+            for sub in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                self._compute_dcts(ctx, pli, 2 * bx + sub[0],
+                                   2 * by + sub[1], bsi - 1, xdec)
+            # Haar-merge the 4 child DCs (reference: src/encode.c:1497-1511;
+            # note the kernel argument order swaps x[1] and x[2]).
+            ln = bsi - xdec + 2
+            a = int(d[(2 * by) << (ln - 1), (2 * bx) << (ln - 1)])
+            b = int(d[(2 * by) << (ln - 1), (2 * bx + 1) << (ln - 1)])
+            cc = int(d[(2 * by + 1) << (ln - 1), (2 * bx) << (ln - 1)])
+            dd = int(d[(2 * by + 1) << (ln - 1), (2 * bx + 1) << (ln - 1)])
+            x0v, x2v, x1v, x3v = haar_kernel(a, cc, b, dd)
+            d[(2 * by) << (ln - 1), (2 * bx) << (ln - 1)] = x0v
+            d[(2 * by) << (ln - 1), (2 * bx + 1) << (ln - 1)] = x1v
+            d[(2 * by + 1) << (ln - 1), (2 * bx) << (ln - 1)] = x2v
+            d[(2 * by + 1) << (ln - 1), (2 * bx + 1) << (ln - 1)] = x3v
 
     # -- block encode (reference: src/encode.c:1229-1453) -------------------
 
+    def _block_encode(self, ctx, bs, pli, bx, by, rdo_only=0):
+        st = self.state
+        enc = self.enc
+        n = 1 << (bs + 2)
+        bx <<= bs
+        by <<= bs
+        xdec = self.info.plane_dec[pli][0]
+        w = st.frame_width >> xdec
+        c = ctx["c"]
+        d = ctx["d"][pli]
+        y0, x0 = by << 2, bx << 2
+        is_keyframe = ctx["is_keyframe"]
+        use_haar = ctx.get("use_haar_wavelet", False)
+        # Late block-skip RDO (reference: src/encode.c:1414-1451): save
+        # the pre-coding lapped block + MC prediction and an EC
+        # checkpoint, so skipping can still win after PVQ coded the
+        # block.
+        has_late_skip = (not is_keyframe) and (not use_haar) and bs > 0
+        if has_late_skip:
+            c_orig_blk = c[y0:y0 + n, x0:x0 + n].copy()
+            mc_orig_blk = ctx["mc"][pli][y0:y0 + n, x0:x0 + n].copy()
+            if self._cost_q3 is not None:
+                tell_ls = self._cost_q3[0]
+            else:
+                tell_ls = enc.tell_frac()
+            cp_ls = self._checkpoint_full()
+        if is_keyframe and rdo_only and not use_haar:
+            # During the block-size RDO pass c is modified by the split
+            # pre/post filters, so refresh the transform while keeping the
+            # Haar-quantized DC (reference: src/encode.c:1301-1306).
+            qdc = d[y0, x0]
+            d[y0:y0 + n, x0:x0 + n] = dct.fdct2d(
+                c[y0:y0 + n, x0:x0 + n][None])[0]
+            d[y0, x0] = qdc
+        if not is_keyframe:
+            # Forward transform of source and MC prediction (reference:
+            # src/encode.c:1296-1319).
+            mcp = ctx["mc"][pli]
+            mdp = ctx["md"][pli]
+            if use_haar:
+                from daala_tpu_torch.ops.haar import haar2d
+                d[y0:y0 + n, x0:x0 + n] = haar2d(
+                    c[y0:y0 + n, x0:x0 + n][None])[0]
+                mdp[y0:y0 + n, x0:x0 + n] = haar2d(
+                    mcp[y0:y0 + n, x0:x0 + n][None])[0]
+            else:
+                d[y0:y0 + n, x0:x0 + n] = dct.fdct2d(
+                    c[y0:y0 + n, x0:x0 + n][None])[0]
+                mdp[y0:y0 + n, x0:x0 + n] = dct.fdct2d(
+                    mcp[y0:y0 + n, x0:x0 + n][None])[0]
+            pred = mdp[y0:y0 + n, x0:x0 + n].copy()
+        # Prediction (reference: od_encode_compute_pred).
+        elif pli == 0 or use_haar:
+            pred = np.zeros((n, n), np.int32)
+            if pli == 0 and not use_haar:
+                predr = np.zeros(n * n, np.int32)
+                intra.hv_intra_pred(predr, d.reshape(-1), w, bx, by,
+                                    st.bsize4, bs)
+                pred = predr.reshape(n, n)
+        else:
+            pred = ctx["l"][:n, :n]
+        if use_haar:
+            from daala_tpu_torch.codec import wavelet
+            from daala_tpu_torch.ops.haar import haar2d_inv
+            dblk = d[y0:y0 + n, x0:x0 + n].astype(np.int64)
+            rec = wavelet.wavelet_quantize(enc, st.adapt, bs + 2, dblk,
+                                           pred.astype(np.int64),
+                                           st.quantizer, pli)
+            if is_keyframe:
+                rec[0, 0] = dblk[0, 0]
+            else:
+                # Inter DC: has_dc_skip is 0 in wavelet mode, so the DC
+                # residual is always coded with the generic model
+                # (reference: src/encode.c:1363-1382).
+                from daala_tpu_torch.ops.pvq import qm_get_index
+                dc_quant = 1 if st.quantizer == 0 else max(
+                    1, st.quantizer
+                    * st.pvq_qm_q4[pli][qm_get_index(bs, 0)] >> 4)
+                dc_idx = PC.div_r0(int(dblk[0, 0]) - int(pred[0, 0]),
+                                   dc_quant)
+                adapt = st.adapt
+                exl = adapt.ex_dc[pli][bs]
+                exl[0] = adapt.model_dc[pli].encode(
+                    enc, abs(dc_idx), -1, exl[0], 2)
+                if dc_idx:
+                    enc.encode_bits(1 if dc_idx < 0 else 0, 1)
+                rec[0, 0] = dc_idx * dc_quant + int(pred[0, 0])
+            d[y0:y0 + n, x0:x0 + n] = rec
+            c[y0:y0 + n, x0:x0 + n] = haar2d_inv(
+                rec.astype(np.int32)[None])[0]
+            return 0
+        dblock = part.raster_to_coding(
+            d[y0:y0 + n, x0:x0 + n][None])[0].astype(np.int64)
+        predt = part.raster_to_coding(pred[None])[0].astype(np.int64)
+        quant = max(1, st.quantizer)
+        nodesync = 1
+        off = P.qm_offset(bs, xdec)
+        slen = part.scan_length(n)
+        out = np.zeros(slen, np.int64)
+        beta = pvq_beta(ctx["use_activity_masking"], pli, bs)
+        # Trial-pass search effort: complexity < 5 matches the
+        # reference's speed=1 (src/encode.c:1359); trial_rate_approx is
+        # our faster speed=2 (projection-only candidates + closed-form
+        # rates) — the final pass always searches exactly (speed 0).
+        speed = 0
+        if rdo_only:
+            if self.complexity < 5:
+                speed = 1
+            elif self.trial_rate_approx:
+                speed = 2
+        forced_bands = None
+        tab = getattr(self, "_device_pvq_tab", None)
+        if tab is not None and not rdo_only and not use_haar:
+            fb = {}
+            offs_b = part.band_offsets(n)
+            for band in range(len(offs_b) - 1):
+                e = tab.get((pli, by, bx, band))
+                if e is None or not e[7]:
+                    continue
+                if is_keyframe and np.any(
+                        predt[int(offs_b[band]):int(offs_b[band + 1])]):
+                    # Keyframe band with a nonzero HV intra reference:
+                    # the device searched against a zero reference
+                    # (sequential dependency), so run the exact host
+                    # search here instead.
+                    continue
+                fb[band] = e[:7]
+            forced_bands = fb or None
+        skip = PC.pvq_encode_block(
+            enc, st.adapt, self, predt, dblock, out, quant, pli, bs, beta,
+            nodesync, is_keyframe, st.qm[off:off + slen],
+            st.qm_inv[off:off + slen], st.pvq_qm_q4[pli],
+            self.pvq_norm_lambda, speed, (self._checkpoint, self._rollback),
+            forced_bands=forced_bands)
+        if not is_keyframe:
+            # has_dc_skip DC coding (reference: src/encode.c:1363-1382).
+            lossless = st.quantizer == 0
+            dc_quant = max(1, quant *
+                           st.pvq_qm_q4[pli][P.qm_get_index(bs, 0)] >> 4) \
+                if not lossless else quant
+            adapt = st.adapt
+            dc_idx = int(out[0])
+            if dc_idx != 0:
+                exl = adapt.ex_dc[pli][bs]
+                if self._cost_q3 is not None:
+                    # Cost-only fast trial (frame_enc.inc DC branch).
+                    cb, exl[0] = adapt.model_dc[pli].cost_encode(
+                        abs(dc_idx) - 1, -1, exl[0], 2)
+                    self._cost_q3[0] += 8.0 * cb + 8.0
+                else:
+                    exl[0] = adapt.model_dc[pli].encode(
+                        enc, abs(dc_idx) - 1, -1, exl[0], 2)
+                    enc.encode_bits(1 if dc_idx < 0 else 0, 1)
+                skip = 0
+            out[0] = dc_idx * dc_quant + predt[0]
+        else:
+            out[0] = dblock[0]
+        base = np.zeros((n, n), np.int32) if is_keyframe else pred.copy()
+        blk = part.coding_to_raster(out[None].astype(np.int32), n,
+                                    base=base[None])[0]
+        d[y0:y0 + n, x0:x0 + n] = blk
+        c[y0:y0 + n, x0:x0 + n] = dct.idct2d(blk[None])[0]
+        if not skip and has_late_skip:
+            # Allow skipping if it helps the RDO metric even though the
+            # PVQ metric didn't skip (reference: src/encode.c:1412-1451).
+            from daala_tpu_torch.codec import dist as dist_mod
+            flat = self.qm_choice == 0
+            dist_noskip = dist_mod.compute_dist(
+                c_orig_blk, c[y0:y0 + n, x0:x0 + n], n,
+                self.use_activity_masking, st.coded_quantizer, flat)
+            lam = self.bs_rdo_lambda
+            if self._cost_q3 is not None:
+                rate_noskip = self._cost_q3[0] - tell_ls
+            else:
+                rate_noskip = enc.tell_frac() - tell_ls
+            dist_skip = dist_mod.compute_dist(
+                c_orig_blk, mc_orig_blk, n, self.use_activity_masking,
+                st.coded_quantizer, flat)
+            nsyms = 4 + (1 if pli == 0 and bs > 0 else 0)
+            skip_cdf = st.adapt.skip_cdf[2 * bs + (1 if pli != 0 else 0)]
+            rate_skip = 8 * -math.log2(
+                int(skip_cdf[0]) / int(skip_cdf[nsyms - 1]))
+            if (dist_skip + lam * rate_skip
+                    < dist_noskip + lam * rate_noskip):
+                self._rollback_full(cp_ls)
+                skip_cdf = st.adapt.skip_cdf[2 * bs
+                                             + (1 if pli != 0 else 0)]
+                if self._cost_q3 is not None:
+                    from daala_tpu_torch.entropy.adapt import cost_cdf_adapt
+                    self._cost_q3[0] = tell_ls
+                    cost_cdf_adapt(self._cost_q3, 0, skip_cdf, nsyms,
+                                   st.adapt.skip_increment)
+                else:
+                    encode_cdf_adapt(enc, 0, skip_cdf, nsyms,
+                                     st.adapt.skip_increment)
+                skip = 1
+                mdp = ctx["md"][pli]
+                d[y0:y0 + n, x0:x0 + n] = mdp[y0:y0 + n, x0:x0 + n]
+                c[y0:y0 + n, x0:x0 + n] = dct.idct2d(
+                    d[y0:y0 + n, x0:x0 + n][None])[0]
+        return skip
+
     # -- recursive encode (reference: src/encode.c:1660-1845) ---------------
+
+    def _encode_recursive(self, ctx, pli, bx, by, bsi, xdec, hgrad, vgrad,
+                          rdo_only=0):
+        st = self.state
+        enc = self.enc
+        obs = st.bsize4(bx << bsi, by << bsi) if pli == 0 else \
+            st.bsize4(bx << bsi, by << bsi)
+        bs = max(obs, xdec)
+        assert bs <= bsi
+        if bs == bsi:
+            bs -= xdec
+            if (ctx["l"] is not None and ctx["is_keyframe"]
+                    and not ctx.get("use_haar_wavelet", False)):
+                assert pli > 0
+                n = 1 << (bs + 2)
+                dl = ctx["d"][0]
+                ly = by << (2 + bsi)
+                lx = bx << (2 + bsi)
+                src = dl[ly:ly + 2 * n + 2, lx:lx + 2 * n + 2]
+                ctx["l"] = intra.resample_luma_coeffs(
+                    src, xdec, self.info.plane_dec[pli][1], bs, obs, n)
+            # The leaf skip symbol is coded inside pvq_encode_block.
+            skip = self._block_encode(ctx, bs, pli, bx, by, rdo_only)
+            sk = st.bskip[pli]
+            val = 1 if (skip and not ctx["is_keyframe"]) else 0
+            sk[(by << bs):(by << bs) + (1 << bs),
+               (bx << bs):(bx << bs) + (1 << bs)] = val
+            return skip
+        else:
+            bs = bsi - xdec
+            n = 4 << bs
+            y0 = by << (2 + bs)
+            x0 = bx << (2 + bs)
+            c = ctx["c"]
+            d = ctx["d"][pli]
+            skip_nosplit = 0
+            rate_nosplit = 0
+            nosplit = None
+            cost_mode = self._cost_q3 is not None
+            if rdo_only:
+                # Trial 1: code this whole block unsplit, measure rate and
+                # keep the reconstruction; then roll everything back
+                # (reference: src/encode.c:1723-1759).  In cost-only
+                # fast-trial mode the checkpoint is just the rate
+                # accumulator (frame_enc.inc fr_snap_save).
+                tell = self._cost_q3[0] if cost_mode else enc.tell_frac()
+                c_orig = c[y0:y0 + n, x0:x0 + n].copy()
+                mc_orig = None
+                if not ctx["is_keyframe"]:
+                    mc_orig = ctx["mc"][pli][y0:y0 + n,
+                                             x0:x0 + n].copy()
+                dc_orig = d[y0:y0 + n:4, x0:x0 + n:4].copy()
+                # Cost mode checkpoints adaptation + the rate
+                # accumulator (frame_enc.inc fr_snap_save).
+                cp_pre = self._checkpoint_full()
+                cost_pre = self._cost_q3[0] if cost_mode else 0.0
+                skip_nosplit = self._block_encode(ctx, bs, pli, bx, by,
+                                                  rdo_only)
+                rate_nosplit = (self._cost_q3[0] if cost_mode
+                                else enc.tell_frac()) - tell
+                cp_post = self._checkpoint_full()
+                cost_post = self._cost_q3[0] if cost_mode else 0.0
+                self._rollback_full(cp_pre)
+                if cost_mode:
+                    self._cost_q3[0] = cost_pre
+                nosplit = c[y0:y0 + n, x0:x0 + n].copy()
+                c[y0:y0 + n, x0:x0 + n] = c_orig
+                d[y0:y0 + n:4, x0:x0 + n:4] = dc_orig
+                if cost_mode and self._bs_prune_enabled():
+                    # Fast-trial subtree prune (frame_enc.inc
+                    # kf_prune_thr / if_prune_thr): keyed on the unsplit
+                    # trial's distortion alone.
+                    from daala_tpu_torch.codec import dist as dist_mod
+                    flat = self.qm_choice == 0
+                    dist_ns = dist_mod.compute_dist(
+                        c_orig, nosplit, n, self.use_activity_masking,
+                        st.coded_quantizer, flat)
+                    lam = self.bs_rdo_lambda
+                    thr = (_kf_prune_thr(bsi, st.quantizer)
+                           if ctx["is_keyframe"]
+                           else _if_prune_thr(bsi, st.quantizer))
+                    ratio = dist_ns / (lam * (n * n))
+                    prune = ratio < thr
+                    # Boosted prune (trial_prune_boost > 1): extend the
+                    # fitted envelope, but only for nodes whose unsplit
+                    # trial also coded cheaply (mostly-skip: on dense-AC
+                    # content a low-dist merge can still lose real rate
+                    # to a split's better lapping, tools/sweep_trial.py
+                    # smooth class), and only at mid/high quantizers
+                    # (below Q4=240 fine splits carry real RD weight).
+                    boost = getattr(self, "trial_prune_boost", 1.0)
+                    # Per-frame-type gates: on keyframes the split's
+                    # better lapping carries real rate even at low
+                    # unsplit rates (smooth gradients code near-free
+                    # but lose up to +7.6% BD at 832x480 with the
+                    # inter gate, tools/sweep_trial.py), so the
+                    # keyframe gate admits only true near-skip nodes.
+                    gate = (getattr(self, "trial_prune_gate_kf", 0.05)
+                            if ctx["is_keyframe"]
+                            else getattr(self, "trial_prune_rate_gate",
+                                         0.5))
+                    if (not prune and boost > 1.0
+                            and st.quantizer >= 240
+                            and ratio < thr * boost
+                            and rate_nosplit < gate * (n * n)):
+                        prune = True
+                    if prune:
+                        self._rollback_full(cp_post)
+                        self._cost_q3[0] = cost_post
+                        c[y0:y0 + n, x0:x0 + n] = nosplit
+                        b8y = (by << bsi) >> 1
+                        b8x = (bx << bsi) >> 1
+                        m = 1 << (bs - 1)
+                        st.bsize[b8y:b8y + m, b8x:b8x + m] = bs
+                        val = (1 if (skip_nosplit
+                                     and not ctx["is_keyframe"]) else 0)
+                        st.bskip[pli][
+                            (by << bs):(by << bs) + (1 << bs),
+                            (bx << bs):(bx << bs) + (1 << bs)] = val
+                        return skip_nosplit
+                if (skip_nosplit and not ctx["is_keyframe"]
+                        and self._bs_prune_enabled()):
+                    # Subtree pruning (frame_enc.inc bs_prune_thr): the
+                    # unsplit trial skipped entirely and its distortion
+                    # is small on the lambda scale — the split subtree
+                    # would skip too, reconstructing the same pixels
+                    # for strictly more signaling, so commit the merge
+                    # without trialing it (mc is untouched here; the
+                    # split prefilter has not run yet).  Thresholds:
+                    # see _bs_prune_thr.
+                    from daala_tpu_torch.codec import dist as dist_mod
+                    flat = self.qm_choice == 0
+                    dist_ns = dist_mod.compute_dist(
+                        c_orig, nosplit, n, self.use_activity_masking,
+                        st.coded_quantizer, flat)
+                    lam = self.bs_rdo_lambda
+                    if dist_ns < _bs_prune_thr(bsi, st.quantizer) \
+                            * lam * (n * n):
+                        self._rollback_full(cp_post)
+                        if cost_mode:
+                            self._cost_q3[0] = cost_post
+                        c[y0:y0 + n, x0:x0 + n] = nosplit
+                        b8y = (by << bsi) >> 1
+                        b8x = (bx << bsi) >> 1
+                        m = 1 << (bs - 1)
+                        st.bsize[b8y:b8y + m, b8x:b8x + m] = bs
+                        st.bskip[pli][
+                            (by << bs):(by << bs) + (1 << bs),
+                            (bx << bs):(bx << bs) + (1 << bs)] = 1
+                        return skip_nosplit
+            hfilter = ((bx + 1) << (2 + bs)) <= self.info.pic_width
+            vfilter = ((by + 1) << (2 + bs)) <= self.info.pic_height
+            if not ctx["is_keyframe"]:
+                filt.prefilter_split(ctx["mc"][pli], y0, x0, bs, 0,
+                                     hfilter, vfilter)
+            # od_prefilter_split on c at split nodes (reference:
+            # src/encode.c:1763); on keyframes c still holds the
+            # prefiltered input from od_compute_dcts.
+            filt.prefilter_split(c, y0, x0, bs, 0, hfilter, vfilter)
+            if pli == 0:
+                # Code the "split this block" symbol (4).
+                if self._cost_q3 is not None:
+                    from daala_tpu_torch.entropy.adapt import cost_cdf_adapt
+                    cost_cdf_adapt(self._cost_q3, 4,
+                                   st.adapt.skip_cdf[2 * bs], 5,
+                                   st.adapt.skip_increment)
+                else:
+                    encode_cdf_adapt(enc, 4, st.adapt.skip_cdf[2 * bs], 5,
+                                     st.adapt.skip_increment)
+            if ctx["is_keyframe"]:
+                hgrad, vgrad = self._quantize_haar_dc_level(
+                    pli, 2 * bx, 2 * by, bsi - 1, xdec, hgrad, vgrad,
+                    ctx["d"][pli])
+            skip_split = 1
+            for sub in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                skip_split &= self._encode_recursive(
+                    ctx, pli, 2 * bx + sub[0], 2 * by + sub[1], bsi - 1,
+                    xdec, hgrad, vgrad, rdo_only)
+            skip_block = skip_split
+            filt.postfilter_split(c, y0, x0, bs, 0, hfilter, vfilter)
+            if rdo_only:
+                # Decide split vs no-split on distortion + lambda*rate
+                # (reference: src/encode.c:1792-1841).
+                rate_split = (self._cost_q3[0] if cost_mode
+                              else enc.tell_frac()) - tell
+                lam = self.bs_rdo_lambda
+                dist_split = dist_nosplit = None
+                chose_nosplit = bool(skip_split)
+                # Distortions only decide anything when the merge is
+                # not forced by all children skipping (the common case
+                # on well-predicted content); the OD_DUMP_BSIZE_DIST
+                # diagnostic still wants them when its dump is active.
+                if not chose_nosplit or (
+                        bsi == OD_NBSIZES - 2
+                        and self._bsize_dist_file is not None):
+                    split = c[y0:y0 + n, x0:x0 + n]
+                    from daala_tpu_torch.codec import dist as dist_mod
+                    flat = self.qm_choice == 0
+                    dist_split = dist_mod.compute_dist(
+                        c_orig, split, n, self.use_activity_masking,
+                        st.coded_quantizer, flat)
+                    dist_nosplit = dist_mod.compute_dist(
+                        c_orig, nosplit, n, self.use_activity_masking,
+                        st.coded_quantizer, flat)
+                    chose_nosplit = skip_split or (
+                        dist_nosplit + lam * rate_nosplit
+                        < dist_split + lam * rate_split)
+                if (bsi == OD_NBSIZES - 2
+                        and dist_nosplit is not None):
+                    # OD_DUMP_BSIZE_DIST accumulation (reference:
+                    # src/encode.c:1828-1838).
+                    self._bsize_dist[pli] += (dist_nosplit if chose_nosplit
+                                              else dist_split)
+                if chose_nosplit:
+                    self._rollback_full(cp_post)
+                    if cost_mode:
+                        self._cost_q3[0] = cost_post
+                    c[y0:y0 + n, x0:x0 + n] = nosplit
+                    # Merge: record this block size in the map (8x8
+                    # granularity) and the skip map.
+                    b8y = (by << bsi) >> 1
+                    b8x = (bx << bsi) >> 1
+                    m = 1 << (bs - 1)
+                    st.bsize[b8y:b8y + m, b8x:b8x + m] = bs
+                    val = 1 if (skip_nosplit
+                                and not ctx["is_keyframe"]) else 0
+                    st.bskip[pli][(by << bs):(by << bs) + (1 << bs),
+                                  (bx << bs):(bx << bs) + (1 << bs)] = val
+                    skip_block = skip_nosplit
+                if not ctx["is_keyframe"]:
+                    ctx["mc"][pli][y0:y0 + n, x0:x0 + n] = mc_orig
+            return skip_block if rdo_only else 0
 
     # -- frame encode -------------------------------------------------------
 
@@ -782,25 +1489,129 @@ class Encoder:
 
     def _encode_coefficients(self, padded_in, self_img, is_keyframe,
                              use_haar_wavelet, planes_u8, rdo_only=0):
-        """od_encode_coefficients (reference: src/encode.c:2539-2855),
-        through the native frame pass, which consumes the device
-        analysis (the original's Python path would ignore it).
+        """od_encode_coefficients (reference: src/encode.c:2539-2855).
+        The native frame pass runs unless the caller asks for the Python
+        path (use_native_frame = False, DAALA_TPU_NATIVE_FRAME=0 or
+        DAALA_TPU_DUMP_BSIZE_DIST); without the native engine it raises
+        where the original falls back to the Python path silently.
 
         With rdo_only=1, runs the luma-only block-size RDO pass: coeffs
         are coded for rate measurement and all coded state is rolled
         back by the caller; the merged bsize/bskip maps persist as the
         pass's output (reference: od_split_superblocks_rdo,
         src/encode.c:2942-2948)."""
-        if not (getattr(self, "use_native_frame", _NATIVE_FRAME_DEFAULT)
-                and hasattr(self.enc, "_h")
+        if (getattr(self, "use_native_frame", _NATIVE_FRAME_DEFAULT)
                 and self._bsize_dist_file is None):
-            raise RuntimeError(
-                "daala_tpu_torch's Encoder needs the native frame pass "
-                "(the only consumer of its analysis planes): native engine "
-                "missing, DAALA_TPU_NATIVE_FRAME=0 or "
-                "DAALA_TPU_DUMP_BSIZE_DIST set")
-        return self._encode_coefficients_native(
-            padded_in, self_img, is_keyframe, use_haar_wavelet, rdo_only)
+            if not hasattr(self.enc, "_h"):
+                raise RuntimeError(
+                    "the native engine is missing: build it, or ask for "
+                    "the Python coefficient path (use_native_frame = "
+                    "False or DAALA_TPU_NATIVE_FRAME=0)")
+            return self._encode_coefficients_native(
+                padded_in, self_img, is_keyframe, use_haar_wavelet,
+                rdo_only)
+        st = self.state
+        info = self.info
+        enc = self.enc
+        nplanes = 1 if rdo_only else info.nplanes
+        # Cost-only fast trial (frame_enc.inc F.cost_only): analytic
+        # rates against frozen adaptation; the range coder is never
+        # touched, so the constant quantizer symbol is skipped too.
+        cost_mode = bool(rdo_only and not use_haar_wavelet
+                         and self.complexity >= 5
+                         and self.trial_rate_approx)
+        self._cost_q3 = [0.0] if cost_mode else None
+        if not cost_mode:
+            enc.encode_uint(st.coded_quantizer,
+                            quantizer.N_CODED_QUANTIZERS)
+        lossless = st.quantizer == 0
+        ctmp = []
+        mctmp = [None] * nplanes
+        mdtmp = [None] * nplanes
+        for pli in range(nplanes):
+            xd, yd = info.plane_dec[pli]
+            # High-depth input arrives in the 12-bit internal format
+            # (uint16) and converts via the full-precision branch.
+            coeffs = ref_plane_to_coeff(
+                padded_in[pli], lossless,
+                fpr=padded_in[pli].dtype == np.uint16,
+                bitdepth_mode=info.bitdepth_mode)
+            if not use_haar_wavelet:
+                filt.apply_prefilter_frame_sbs(coeffs, st.nhsb, st.nvsb,
+                                               xd, yd)
+            ctmp.append(coeffs)
+            if not is_keyframe:
+                mc_coeffs = ref_plane_to_coeff(
+                    self_img.plane_view(pli), lossless,
+                    fpr=bool(self.info.full_precision_references),
+                    bitdepth_mode=info.bitdepth_mode)
+                if not use_haar_wavelet:
+                    filt.apply_prefilter_frame_sbs(mc_coeffs, st.nhsb,
+                                                   st.nvsb, xd, yd)
+                mctmp[pli] = mc_coeffs
+                mdtmp[pli] = np.zeros_like(mc_coeffs)
+                # Make the padding identical to the reference so no bits
+                # are wasted there (reference: src/encode.c:2662-2686).
+                pic_w = (info.pic_width + (1 << xd) - 1) >> xd
+                pic_h = (info.pic_height + (1 << yd) - 1) >> yd
+                coeffs[:, pic_w:] = mc_coeffs[:, pic_w:]
+                coeffs[pic_h:, :] = mc_coeffs[pic_h:, :]
+        dtmp = [np.zeros_like(ctmp[p]) for p in range(nplanes)]
+        ctx = {"is_keyframe": bool(is_keyframe),
+               "use_activity_masking": self.use_activity_masking,
+               "d": dtmp, "l": None,
+               "use_haar_wavelet": use_haar_wavelet,
+               "mc": mctmp, "md": mdtmp}
+        for sby in range(st.nvsb):
+            for sbx in range(st.nhsb):
+                for pli in range(nplanes):
+                    xdec = info.plane_dec[pli][0]
+                    ctx["c"] = ctmp[pli]
+                    ctx["l"] = (np.zeros((64, 64), np.int32) if pli > 0
+                                else None)
+                    hgrad = vgrad = 0
+                    if is_keyframe:
+                        if rdo_only:
+                            # The SB DC quantization below is only run to
+                            # seed hgrad/vgrad and the quantized DCs in d;
+                            # its symbols and coeff edits are undone
+                            # (reference: src/encode.c:2633-2650).
+                            cp = self._checkpoint_full()
+                            cost_cp = (self._cost_q3[0] if cost_mode
+                                       else 0.0)
+                            sb = 64 >> xdec
+                            c_orig_sb = ctmp[pli][
+                                sb * sby:sb * (sby + 1),
+                                sb * sbx:sb * (sbx + 1)].copy()
+                        self._compute_dcts(ctx, pli, sbx, sby,
+                                           OD_NBSIZES - 1, xdec)
+                        hgrad, vgrad = self._quantize_haar_dc_sb(
+                            pli, sbx, sby, xdec,
+                            sby > 0 and sbx < st.nhsb - 1, dtmp[pli])
+                        if rdo_only:
+                            self._rollback_full(cp)
+                            if cost_mode:
+                                self._cost_q3[0] = cost_cp
+                            ctmp[pli][sb * sby:sb * (sby + 1),
+                                      sb * sbx:sb * (sbx + 1)] = c_orig_sb
+                    self._encode_recursive(ctx, pli, sbx, sby,
+                                           OD_NBSIZES - 1, xdec, hgrad,
+                                           vgrad, rdo_only)
+        if rdo_only:
+            # The RDO pass's reconstruction is discarded; skip the frame
+            # postfilter and dering (the reference runs the postfilter
+            # here too, but its output is unused, src/encode.c:2670-2678).
+            self._cost_q3 = None
+            return ctmp
+        if not use_haar_wavelet:
+            for pli in range(nplanes):
+                xdec = info.plane_dec[pli][0]
+                filt.apply_postfilter_frame_sbs(ctmp[pli], st.nhsb,
+                                                st.nvsb, xdec,
+                                                info.plane_dec[pli][1])
+        if st.quantizer != 0:
+            self._encode_dering(ctmp, planes_u8, is_keyframe)
+        return ctmp
 
     def _encode_one(self, planes_u8, frame_type, display_order):
         st = self.state
@@ -1198,6 +2009,109 @@ class Encoder:
                     "encoder_check: pixel mismatch frame %d plane %d"
                     % (self.frame_count - 1, pli))
 
+    def _encode_dering(self, ctmp, planes_u8, is_keyframe):
+        """Dering RDO + signaling (reference: src/encode.c:2680-2842).
+        With use_dering off, still codes level 0 for non-skip SBs."""
+        from daala_tpu_torch.ops import dering as dering_mod
+        st = self.state
+        info = self.info
+        enc = self.enc
+        nhdr = st.frame_width >> 6
+        nvdr = st.frame_height >> 6
+        nplanes = info.nplanes
+        base_threshold = float(st.quantizer) ** 0.84182
+        levels = np.zeros((nvdr, nhdr), np.int32)
+        etmp = [c.astype(np.int16) for c in ctmp]
+        for sby in range(nvdr):
+            for sbx in range(nhdr):
+                bsk = st.bskip[0][sby << 4:(sby + 1) << 4,
+                                  sbx << 4:(sbx + 1) << 4]
+                if np.all(bsk):
+                    levels[sby, sbx] = 0
+                    continue
+                if is_keyframe:
+                    left = up = 0
+                    if sby > 0:
+                        left = up = int(levels[sby - 1, sbx])
+                    if sbx > 0:
+                        left = int(levels[sby, sbx - 1])
+                        if sby == 0:
+                            up = left
+                    cctx = up + left
+                else:
+                    cctx = 0
+                best_gi = 0
+                if self.use_dering:
+                    best_gi = self._dering_rdo(
+                        ctmp, etmp, planes_u8, sby, sbx, cctx,
+                        base_threshold)
+                levels[sby, sbx] = best_gi
+                encode_cdf_adapt(enc, best_gi, st.adapt.dering_cdf[cctx], 6,
+                                 st.adapt.dering_increment)
+                if best_gi:
+                    dirs = None
+                    for pli in range(nplanes):
+                        xdec = info.plane_dec[pli][0]
+                        ln = 6 - xdec
+                        n = 1 << ln
+                        threshold = int(
+                            dering_mod.OD_DERING_GAIN_TABLE[best_gi]
+                            * base_threshold * (1 if pli == 0 else 0.6))
+                        out, dirs = dering_mod.od_dering(
+                            etmp[pli], sby, sbx, xdec, pli, st.bskip[pli],
+                            threshold, n, dirs=dirs)
+                        ctmp[pli][sby << ln:(sby << ln) + n,
+                                  sbx << ln:(sbx << ln) + n] = out
+
+    def _dering_rdo(self, ctmp, etmp, planes_u8, sby, sbx, cctx,
+                    base_threshold):
+        """Pick the dering level by activity-weighted distortion +
+        CDF-cost (reference: src/encode.c:2770-2812)."""
+        from daala_tpu_torch.codec import dist as dist_mod
+        from daala_tpu_torch.ops import dering as dering_mod
+        st = self.state
+        n = 64
+        y0, x0 = sby << 6, sbx << 6
+        # Build original-luma coefficients for this SB from the padded input.
+        img_cache = getattr(self, "_orig_coeff_luma", None)
+        if img_cache is None:
+            xd, yd = self.info.plane_dec[0]
+            pw, ph = st.frame_width, st.frame_height
+            padded = img_plane_copy_pad(planes_u8[0], pw, ph,
+                                        self.info.pic_width,
+                                        self.info.pic_height)
+            img_cache = ref_plane_to_coeff(
+                padded, False, fpr=padded.dtype == np.uint16,
+                bitdepth_mode=self.info.bitdepth_mode)
+            self._orig_coeff_luma = img_cache
+        orig = img_cache[y0:y0 + n, x0:x0 + n]
+        cur = ctmp[0][y0:y0 + n, x0:x0 + n]
+        adapt = st.adapt
+        flat = self.qm_choice == 0
+
+        def cdf_cost(v):
+            cdf = adapt.dering_cdf[cctx]
+            prev = cdf[v - 1] if v > 0 else 0
+            return -math.log2((cdf[v] - prev) / cdf[5])
+
+        best_dist = dist_mod.compute_dist(
+            orig, cur, n, self.use_activity_masking, st.coded_quantizer,
+            flat) + self.dering_lambda * cdf_cost(0)
+        best_gi = 0
+        for gi in range(1, 6):
+            threshold = int(dering_mod.OD_DERING_GAIN_TABLE[gi]
+                            * base_threshold)
+            out, _ = dering_mod.od_dering(etmp[0], sby, sbx, 0, 0,
+                                          st.bskip[0], threshold, 64)
+            dist = dist_mod.compute_dist(
+                orig, out.astype(np.int32), n, self.use_activity_masking,
+                st.coded_quantizer, flat) \
+                + self.dering_lambda * cdf_cost(gi)
+            if dist < best_dist:
+                best_dist = dist
+                best_gi = gi
+        return best_gi
+
 
 def _shadow8(rimg):
     """An 8-bit shadow of a full-precision reference image for the
@@ -1211,3 +2125,7 @@ def _shadow8(rimg):
             (p.astype(np.int32) + (1 << 4 >> 1)) >> 4, 0, 255)
     return out
 
+
+def _div_trunc(a, b):
+    q = abs(a) // b
+    return -q if a < 0 else q

@@ -857,15 +857,43 @@ class DevicePVQTable:
     that imports jax).
 
     groups: one entry per (plane, block size) with vector block
-    coordinates and per-band result arrays; native_arrays() flattens
-    them to the (idx, meta, yoff, ypool, sd) arrays frame_enc.inc's
-    ec_pvq_theta_forced replay reads, with numpy scatters.  (JAX's
-    get(), the per-band view of its Python coefficient path, is not
-    copied: the port has only the native pass.)
+    coordinates and per-band result arrays — the natural shape of the
+    batched device search, consumed without per-block Python:
+
+      * native_arrays() flattens to the (idx, meta, yoff, ypool, sd)
+        arrays frame_enc.inc's ec_pvq_theta_forced replay reads,
+        entirely with numpy scatters;
+      * get((pli, by4, bx4, band)) provides the tuple view the pure-
+        Python coefficient path consumes (lazy index, test/debug path),
+        and counts the valid entries it hands out under the devstats
+        counter "forced_bands".
     """
 
     def __init__(self):
         self.groups = []
+        self._index = None
+
+    def get(self, key):
+        pli, by4, bx4, band = key
+        if self._index is None:
+            self._index = {}
+            for g in self.groups:
+                for i in range(len(g["by4"])):
+                    self._index[(g["pli"], int(g["by4"][i]),
+                                 int(g["bx4"][i]))] = (g, i)
+        hit = self._index.get((pli, by4, bx4))
+        if hit is None:
+            return None
+        g, i = hit
+        r = g["bands"].get(band)
+        if r is None:
+            return None
+        valid = bool(r["valid"][i])
+        if valid:
+            devstats.count("forced_bands", 1)
+        return (int(r["noref"][i]), int(r["qg"][i]),
+                int(r["itheta"][i]), int(r["ts"][i]), int(r["k"][i]),
+                r["y"][i], float(r["skip_diff"][i]), valid)
 
     def native_arrays(self, st, info):
         """Flatten to the native replay arrays (idx int32 per-plane 4x4

@@ -20,6 +20,9 @@ from daala_tpu.models import keyframe as JKF
 from daala_tpu_torch.models import analysis as t_analysis
 from daala_tpu_torch.models import keyframe as TKF
 from daala_tpu_torch.utils import devstats
+import torch_threads
+
+torch_threads.share_cores()
 
 CPU = torch.device("cpu")
 

@@ -4,7 +4,10 @@ package's jax-free host codec (codec/, entropy/, native/, the numpy
 ops/, utils/logging.py, utils/dump.py, utils/y4m.py, utils/metrics.py)
 and of its training subsystem (train/) equal their originals apart
 from their import lines and the definitions listed in COPIES, which
-carry the port's device tier where the original has its JAX one.
+carry the port's device tier where the original has its JAX one.  The
+encoder's Python coefficient path is an exact copy; only its choice
+differs, as the port raises without the native engine where the
+original falls back to it.
 
 Every value compared is an integer, so the tolerance is zero.
 """
@@ -25,6 +28,9 @@ from daala_tpu.ops import intrin as jintrin
 from daala_tpu_torch.codec import mc as tmc
 from daala_tpu_torch.ops import _lifting as tL
 from daala_tpu_torch.ops import intrin as tintrin
+import torch_threads
+
+torch_threads.share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "daala_tpu_torch")
@@ -36,7 +42,8 @@ NETWORKS = ["%s%d" % (k, n) for n in (4, 8, 16, 32, 64)
 # Each copied module, with the definitions (module-level functions,
 # Class.method, or "stmt:<names it binds>") where the copy differs from
 # daala_tpu's: the port's device tier in place of the JAX one, the
-# native engine loaded at first use, and what those changes left unused.
+# native engine loaded at first use, what those changes left unused,
+# and no silent fallback to the encoder's Python coefficient path.
 COPIES = {
     "codec/blocksize.py": (),
     "codec/decoder.py": (
@@ -53,18 +60,13 @@ COPIES = {
         # and sweep
         "Encoder.__init__", "Encoder.mv_refine_mode",
         "Encoder.mv_refine_mode#2", "Encoder._encode_one",
+        # the Python coefficient path only where the caller asks for
+        # it: a missing native engine raises instead of falling back
         "Encoder._encode_coefficients",
         # device dering: the port's candidates on `device`
         "Encoder._encode_coefficients_native",
         # the check's embedded decoder is asked for as the host decoder
-        "Encoder._encoder_check",
-        # the Python coefficient path, which ignores the device analysis
-        "Encoder._quantize_haar_dc_sb", "Encoder._quantize_haar_dc_level",
-        "Encoder._compute_dcts", "Encoder._block_encode",
-        "Encoder._encode_recursive", "Encoder._encode_dering",
-        "Encoder._dering_rdo", "Encoder._checkpoint", "Encoder._rollback",
-        "_if_prune_thr", "_kf_prune_thr", "_bs_prune_thr", "_div_round_0",
-        "_div_trunc"),
+        "Encoder._encoder_check"),
     "codec/headers.py": (),
     "codec/mc.py": ("stmt:_NLIB", "_nlib", "pred_l0_native",
                     "_predict_frame_plane_native"),

@@ -3,8 +3,9 @@ plain versions at the encoder's 1080p shapes, launch-error reporting,
 the device OBMC predictor against the host's, the encoder on the card
 against the host encoder and (in sweep mode) against itself on the
 CPU, the lean tier's PVQ band search and SAD fields on the card
-against the CPU, the decoder's device back end (dering and synthesis)
-on the card against the CPU and the host decoder, the parallel
+against the CPU, the lean tier's Python coefficient path on the card
+against its native pass, the decoder's device back end (dering and
+synthesis) on the card against the CPU and the host decoder, the parallel
 encodes (parallel/mesh.py) on the card against the CPU and serial
 encodes, the mesh's sp axis (parallel/sharding.py: the lap kernel from
 a tile's origin, the sharded device tier, batch and clips on a 2 x 2
@@ -37,6 +38,9 @@ from daala_tpu_torch.models import pvqsearch as PS
 from daala_tpu_torch.ops.cuda import (_build, dct_kernels, lap_kernels,
                                       obmc_kernels as OK)
 from daala_tpu_torch.utils import devstats
+import torch_threads
+
+torch_threads.share_cores()
 
 pytestmark = pytest.mark.cuda
 
@@ -493,6 +497,21 @@ def test_band_search_on_card_matches_cpu(card, n, m, is_keyframe):
     same = (got[0].cpu() == want[0]).all(1) & (got[1].cpu() == want[1]).all(1)
     assert int(same.sum()) >= 0.99 * m, (int(same.sum()), m)
     torch.cuda.synchronize()
+
+
+def test_lean_python_path_on_card_matches_native(card):
+    """The lean tier on the card through the Python coefficient path
+    (use_native_frame = False) and the native frame pass:
+    test_torch_encoder_python.py's case, byte-identical packets, the
+    encoder check on, the Python path's forced-band replay fed."""
+    if native.get_lib() is None:
+        pytest.fail("the native engine did not build")
+    from test_torch_encoder_python import lean_python_matches_native
+    native_pk, python_pk, snap = lean_python_matches_native(card)
+    assert snap["counts"]["forced_bands"] > 0
+    assert snap["launches"].get("lap_frame", 0) > 0
+    assert snap["launches"].get("dct_frame", 0) > 0
+    assert python_pk == native_pk
 
 
 def test_sad_fields_on_card_match_cpu(card):

@@ -6,6 +6,9 @@ host encoder's (keyframes, inter frames, odd sizes, complexity 7,
 10-bit input with full-precision references), and on one clip to the
 JAX device tier's.  Since only the native pass reads the planes, a
 perturbed plane must change the packets: that proves they are used.
+Without the native engine the encoder raises rather than fall back to
+its Python coefficient path (tests/test_torch_encoder_python.py runs
+that path where it is asked for).
 """
 
 import os
@@ -20,9 +23,13 @@ from daala_tpu import native
 from daala_tpu.codec import headers
 from daala_tpu.codec.encoder import Encoder as HostEncoder
 from daala_tpu_torch.codec.encoder import Encoder
+from daala_tpu_torch.entropy import ec as ec_mod
 from daala_tpu_torch.models import keyframe as TKF
 from daala_tpu_torch.models import restore as TR
 from daala_tpu_torch.utils import devstats
+import torch_threads
+
+torch_threads.share_cores()
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="native engine unavailable")
@@ -252,13 +259,16 @@ def test_rdo_pyramid_is_consumed(monkeypatch):
     assert run() != base
 
 
-def test_refuses_the_python_frame_path():
-    """The Python coefficient path ignores the planes, so the port's
-    encoder refuses to run on it rather than pass unverified."""
+def test_refuses_the_python_frame_path(monkeypatch):
+    """The port takes the Python coefficient path only where the caller
+    asks for it (tests/test_torch_encoder_python.py): with the native
+    engine missing (the range coder without its native handle) and
+    use_native_frame left on, it raises where JAX's encoder falls back
+    to the Python path."""
+    monkeypatch.setattr(ec_mod, "Encoder", ec_mod.PyEncoder)
     info = headers.Info(pic_width=64, pic_height=64)
     enc = Encoder(info, device="cpu", quant=15, complexity=1)
-    enc.use_native_frame = False
-    with pytest.raises(RuntimeError):
+    with pytest.raises(RuntimeError, match="native engine is missing"):
         enc.encode_frame(_clip(64, 64, 1)[0])
 
 

@@ -32,6 +32,9 @@ import torch
 
 from daala_tpu_torch.ops import _lifting as L
 from daala_tpu_torch.ops.cuda.lap_kernels import lap_frame_plain
+import torch_threads
+
+torch_threads.share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "daala_tpu_torch", "csrc")

@@ -22,6 +22,9 @@ from daala_tpu_torch.codec.encoder import Encoder
 from daala_tpu_torch.models import mefield as MF
 from daala_tpu_torch.utils import devstats
 from test_mefield import _win_sad_ref
+import torch_threads
+
+torch_threads.share_cores()
 
 PAD = MC.OD_BUFFER_PADDING
 

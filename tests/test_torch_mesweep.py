@@ -30,6 +30,9 @@ from daala_tpu_torch.codec.encoder import Encoder
 from daala_tpu_torch.models import mesweep as MS
 from daala_tpu_torch.utils import devstats
 from test_mesweep import _clip
+import torch_threads
+
+torch_threads.share_cores()
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="native engine unavailable")

@@ -26,6 +26,9 @@ from daala_tpu.ops.pallas.obmc_kernels import (obmc_blend_pallas,
                                                obmc_leaf_cells_pallas)
 from daala_tpu_torch.models import obmc as OB
 from daala_tpu_torch.ops.cuda import obmc_kernels as OK
+import torch_threads
+
+torch_threads.share_cores()
 
 PAD = 64
 PLANE = (128 + 2 * PAD, 192 + 2 * PAD)  # a padded 192x128 luma plane

@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 
 from daala_tpu.codec.mc import _setup_s_split
+import torch_threads
+
+torch_threads.share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "daala_tpu_torch", "csrc")

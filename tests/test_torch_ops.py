@@ -28,6 +28,9 @@ from daala_tpu.ops.pallas.lap_kernels import lap_frame_pallas
 from daala_tpu_torch.device import resolve
 from daala_tpu_torch.ops import dct as t_dct
 from daala_tpu_torch.ops.cuda import _build, dct_kernels, lap_kernels
+import torch_threads
+
+torch_threads.share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))

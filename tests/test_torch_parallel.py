@@ -31,6 +31,9 @@ from daala_tpu_torch.codec.decoder import Decoder
 from daala_tpu_torch.codec.encoder import Encoder
 from daala_tpu_torch.parallel import dryrun, mesh as PM
 from daala_tpu_torch.utils import devstats, profile
+import torch_threads
+
+torch_threads.share_cores()
 
 CPU2 = ["cpu", "cpu"]
 CPU4 = ["cpu"] * 4

@@ -24,6 +24,9 @@ import jax.numpy as jnp
 
 from daala_tpu.models import analysis as JA
 from daala_tpu_torch.models import analysis as TA
+import torch_threads
+
+torch_threads.share_cores()
 
 SHAPES = [(128, 128), (192, 256)]
 CASES = [(h, w, bs) for h, w in SHAPES for bs in range(5)

@@ -7,6 +7,9 @@ import pytest
 from daala_tpu_torch.utils import devstats
 from daala_tpu_torch.utils.profile import (device_summary, span_device_work,
                                            translation_clip)
+import torch_threads
+
+torch_threads.share_cores()
 
 
 def test_device_summary_classes_and_union():

@@ -21,7 +21,9 @@ use_device_pvq=True)) against the JAX package and the host search.
   equal to the encoder's reconstruction; the reference decoder's leg
   runs where its oracle is available.
 - Inside a lean encode of one 96x64 clip, JAX's search_frame on the
-  same inputs gives the same decision table on at least 99% of rows.
+  same inputs gives the same decision table on at least 99% of rows,
+  and DevicePVQTable.get (the Python coefficient path's view) answers
+  exactly as JAX's on the same table.
 - band_search's operations (each one launch on a card) do not grow with
   the row count.
 - Marked slow (several minutes): bench.py's 1080p clip through the
@@ -58,6 +60,10 @@ try:
     HAVE_ORACLE = True
 except Exception:  # pragma: no cover
     HAVE_ORACLE = False
+
+import torch_threads
+
+torch_threads.share_cores()
 
 needs_native = pytest.mark.skipif(native.get_lib() is None,
                                   reason="native engine unavailable")
@@ -455,12 +461,14 @@ def test_lean_tier_reference_decoder():
                                           np.asarray(b[pl]))
 
 
-@needs_native
-def test_lean_tables_match_jax(monkeypatch):
+@pytest.fixture(scope="module")
+def lean_table_pairs():
     """A lean encode of a 96x64 clip (a keyframe and an inter frame, all
-    blocks 4x4 so that one band length runs): at every search_frame
-    call, JAX's search_frame on the same inputs gives the same decision
-    table on at least 99% of rows, in every frame."""
+    blocks 4x4 so that one band length runs), with JAX's search_frame
+    run on the same inputs at every search_frame call: the list of
+    (is_keyframe, JAX's table, the port's table)."""
+    if native.get_lib() is None:
+        pytest.skip("native engine unavailable")
     w, h = 96, 64
     frames = content.make_clip(w, h, 2, seed=5)
     pairs = []
@@ -486,14 +494,24 @@ def test_lean_tables_match_jax(monkeypatch):
             return got
         return done
 
-    monkeypatch.setattr(PS, "search_frame", both)
-    info = H.Info(pic_width=w, pic_height=h)
-    enc = Encoder(info, quant=18, complexity=7, device="cpu",
-                  use_device_analysis=False, use_device_pvq=True)
-    enc.fixed_bsize = 0
-    enc.enable_encoder_check = True
-    for fr in frames:
-        enc.encode_frame(fr)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PS, "search_frame", both)
+        info = H.Info(pic_width=w, pic_height=h)
+        enc = Encoder(info, quant=18, complexity=7, device="cpu",
+                      use_device_analysis=False, use_device_pvq=True)
+        enc.fixed_bsize = 0
+        enc.enable_encoder_check = True
+        for fr in frames:
+            enc.encode_frame(fr)
+    return pairs
+
+
+@needs_native
+def test_lean_tables_match_jax(lean_table_pairs):
+    """At every search_frame call of the lean encode, JAX's search_frame
+    on the same inputs gives the same decision table on at least 99% of
+    rows, in every frame."""
+    pairs = lean_table_pairs
     assert [p[0] for p in pairs] == [True, False]
     for is_keyframe, want, got in pairs:
         equal = total = 0
@@ -510,6 +528,41 @@ def test_lean_tables_match_jax(monkeypatch):
                 total += len(same)
         assert total > 100 and equal >= 0.99 * total, (is_keyframe, equal,
                                                        total)
+
+
+def _same_entry(a, b):
+    """Two get() answers are equal: the same Python types, the same
+    ints and flag, the same y row and the same skip_diff (NaN equal to
+    NaN)."""
+    if a is None or b is None:
+        return a is b
+    return (a[:5] == b[:5] and a[7] == b[7]
+            and a[5].dtype == b[5].dtype and np.array_equal(a[5], b[5])
+            and (a[6] == b[6] or (np.isnan(a[6]) and np.isnan(b[6])))
+            and all(type(x) is type(y) for x, y in zip(a, b)))
+
+
+@needs_native
+def test_table_get_matches_jax(lean_table_pairs):
+    """DevicePVQTable.get, the Python coefficient path's view of the
+    table, answers exactly as JAX's get on the same groups (the port's
+    tables of the lean encode), at every key the Python path can ask:
+    every searched band, a band past the last, a block and a plane that
+    were not searched; and it counts the valid entries it handed out."""
+    for _, _, got in lean_table_pairs:
+        keys = [(g["pli"], int(by), int(bx), band)
+                for g in got.groups for by, bx in zip(g["by4"], g["bx4"])
+                for band in range(len(g["bands"]) + 1)]
+        keys += [(0, -1, -1, 0), (9, 0, 0, 0)]
+        jax_view = JPS.DevicePVQTable()
+        jax_view.groups = got.groups
+        devstats.reset()
+        mine = [got.get(k) for k in keys]
+        valid = sum(1 for e in mine if e is not None and e[7])
+        assert devstats.snapshot()["counts"].get("forced_bands", 0) == valid
+        assert valid > 100 and mine.count(None) >= 2
+        theirs = [jax_view.get(k) for k in keys]
+        assert all(_same_entry(a, b) for a, b in zip(mine, theirs))
 
 
 @needs_native

@@ -14,6 +14,9 @@ from daala_tpu.models import restore as JR
 from daala_tpu.ops import dering as D
 from daala_tpu_torch.models import restore as R
 from daala_tpu_torch.utils import devstats
+import torch_threads
+
+torch_threads.share_cores()
 
 
 def _bskip(rng, h4, w4, p=0.3):

@@ -36,6 +36,9 @@ from daala_tpu_torch.parallel.sharding import (Sharding, ShardedPlane,
                                                split_units, stage_hook)
 from daala_tpu_torch.utils import devstats
 from test_torch_analysis import _planes, _setup
+import torch_threads
+
+torch_threads.share_cores()
 
 CPU = torch.device("cpu")
 

@@ -21,6 +21,9 @@ import content
 from daala_tpu_torch.train import zigzag as tzz
 from daala_tpu_torch.utils import sweep_quality as SQ
 from daala_tpu_torch.utils.y4m import Y4MWriter
+import torch_threads
+
+torch_threads.share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -33,6 +33,9 @@ from daala_tpu_torch.utils import devstats
 
 from test_device_synthesis import CASES
 from test_frame_native import _clip, _encode
+import torch_threads
+
+torch_threads.share_cores()
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="native engine unavailable")

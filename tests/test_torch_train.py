@@ -28,6 +28,9 @@ from daala_tpu.train import zigzag as jzz
 from daala_tpu_torch.train import gain as tgain
 from daala_tpu_torch.train import vq as tvq
 from daala_tpu_torch.train import zigzag as tzz
+import torch_threads
+
+torch_threads.share_cores()
 
 
 def _frame():
