@@ -182,14 +182,24 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    (devstats "forced_bands" > 0), and lap_frame, dct_frame and
    obmc_leaf_cells launched in the Python run.  Prints both walls and
    the bytes.
+11. The benchmark harnesses, each in its own process as bench.py's
+   probes are: `python -m daala_tpu_torch.bench` (the three
+   configurations probed, then the fastest on bench.py's two 1080p
+   clips, two runs each) and `python -m
+   daala_tpu_torch.utils.bench_scaling` at its defaults.  Every probe
+   is a measurement, not an error, with lap_frame and dct_frame
+   launched in it (and obmc_leaf_cells in device+sweep's); the headline
+   is above 0 with both clips; the translation clip's bytes equal the
+   checked encode of the chosen configuration (phase 3, 3c or 4c's
+   1080p run); both scaling walls are above 0.  Prints both JSON lines.
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
    obmc_leaf_cells from phase 4b) and, beside them, its launches in
    phase 6's decode ("decode_launches"), in phases 7a-7b (both
    schedules; "batch_launches"), in phase 8a ("train_launches"), in
-   phase 9's sharded paths ("shard_launches") and in phase 10's Python
-   run ("python_path_launches"),
-   error, times and bound; then, as the
+   phase 9's sharded paths ("shard_launches"), in phase 10's Python
+   run ("python_path_launches") and in phase 11's probe runs
+   ("bench_launches"), error, times and bound; then, as the
    last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
 
@@ -1067,8 +1077,7 @@ def lean_encoder(info, device, **kw):
 
 
 def phase_lean(torch, dev, ref):
-    """Phase 3c against phase 3's results `ref`; returns the launches per
-    band_search call of the traced frames."""
+    """Phase 3c against phase 3's results `ref`; returns its bytes."""
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.utils import devstats
     from daala_tpu_torch.utils.profile import (ENCODER_KW as kw, H,
@@ -1135,16 +1144,14 @@ def phase_lean(torch, dev, ref):
             print("lean trace: %d band_search ranges for %d calls; "
                   "launches per call not read" % (len(work), len(calls)))
             work = []
-        per_call = []
         for (n, rows, _, _), w in zip(calls, work):
-            per_call.append(dict(n=n, rows=rows, **w))
             print("lean trace %s: band_search n=%d, %d rows: %d launches, "
                   "device %.3f ms, host wall %.3f ms"
                   % (w["frame"], n, rows, w["launches"], w["device_ms"],
                      w["wall_ms"]))
     finally:
         restore()
-    return per_call
+    return nbytes
 
 
 def phase_fields(torch, dev):
@@ -1389,7 +1396,7 @@ def phase_lean_small(torch, dev, sweep=False):
 
 def phase_lean_sweep_1080p(torch, dev):
     """Phase 4c, information: phase 3's clip and preset in the lean tier
-    with the sweep on the card, encoder check on."""
+    with the sweep on the card, encoder check on; returns its bytes."""
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.utils import devstats
     from daala_tpu_torch.utils.profile import (ENCODER_KW, H, NFRAMES, W,
@@ -1405,6 +1412,7 @@ def phase_lean_sweep_1080p(torch, dev):
           % (W, H, dev, len(pk), sum(map(len, pk)),
              NFRAMES * W * H / 1e6 / secs, secs))
     print("devstats: " + json.dumps(snap, sort_keys=True))
+    return sum(map(len, pk))
 
 
 def phase_python_path(torch, dev):
@@ -2020,14 +2028,85 @@ def phase_sharded(torch, dev, ref, batch_ref, clips_ref):
     return total
 
 
+def run_json(args, timeout):
+    """Run `python -m args...` from the checkout in a session of its own
+    and return the JSON object on the last line of its output; on a
+    timeout, kill the session (the command and every process it
+    started) and raise."""
+    import signal
+    proc = subprocess.Popen([sys.executable, "-m"] + args, cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("%s: timed out (%d s)" % (args[0], timeout))
+    if proc.returncode != 0 or not out.strip():
+        raise AssertionError("%s: rc=%d %s" % (args[0], proc.returncode,
+                                               err.strip()[-2000:]))
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_bench(torch, dev, checked):
+    """Phase 11 against `checked`, the bytes of the translation clip's
+    checked encode per configuration; returns each kernel's launches in
+    the probe runs."""
+    t0 = time.perf_counter()
+    line = run_json(["daala_tpu_torch.bench"], 700)
+    bench_s = time.perf_counter() - t0
+    print(json.dumps(line))
+    cfg = line["config"]
+    launches = {}
+    for name in ("analysis", "device", "device+sweep"):
+        probe = cfg["probe"][name]
+        if not isinstance(probe, dict):
+            raise AssertionError("bench probe %s: %s" % (name, probe))
+        need = ("lap_frame", "dct_frame") + (
+            ("obmc_leaf_cells",) if name == "device+sweep" else ())
+        for k in need:
+            if probe["dev"]["launches"].get(k, 0) <= 0:
+                raise AssertionError("bench probe %s: %s never launched"
+                                     % (name, k))
+        for k, v in probe["dev"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if not line["value"] > 0:
+        raise AssertionError("bench headline %r" % line["value"])
+    if set(cfg["per_content"]) != {"translation", "natural"}:
+        raise AssertionError("bench contents %s" % sorted(cfg["per_content"]))
+    got = cfg["per_content"]["translation"]["bytes"]
+    if got != checked[cfg["name"]]:
+        raise AssertionError("bench %s: translation clip %d bytes, checked "
+                             "encode %d" % (cfg["name"], got,
+                                            checked[cfg["name"]]))
+    print("bench: %s chosen, %.4f Mpix/s, translation clip %d bytes == the "
+          "checked encode's; probes %s; %.1f s"
+          % (cfg["name"], line["value"], got,
+             {n: round(p["mpix_s"], 4) for n, p in cfg["probe"].items()},
+             bench_s))
+    t0 = time.perf_counter()
+    scaling = run_json(["daala_tpu_torch.utils.bench_scaling"], 400)
+    print(json.dumps(scaling))
+    if not (scaling["serial_s"] > 0 and scaling["threaded_s"] > 0):
+        raise AssertionError("bench_scaling walls %r, %r"
+                             % (scaling["serial_s"], scaling["threaded_s"]))
+    print("bench_scaling: serial %.3f s, threaded %.3f s (%.3fx); %.1f s"
+          % (scaling["serial_s"], scaling["threaded_s"], scaling["speedup"],
+             time.perf_counter() - t0))
+    return launches
+
+
 def kernel_line(kern, launches, decode_launches, batch_launches,
-                train_launches, shard_launches, python_path_launches):
+                train_launches, shard_launches, python_path_launches,
+                bench_launches):
     """The kernels line: each kernel's launches on the encoder's path, in
     the decode, in the batched phases 7a-7b, in the training
     statistics (phase 8a), on the sharded paths of phase 9
-    ("shard_launches": 9a, 9b, 9d and 9e, each tile a launch) and on
-    the encoder's Python coefficient path (phase 10's Python run), and
-    its numbers summed
+    ("shard_launches": 9a, 9b, 9d and 9e, each tile a launch), on
+    the encoder's Python coefficient path (phase 10's Python run) and in
+    the benchmark's probe runs (phase 11, "bench_launches"), and its
+    numbers summed
     over phase 2's and 2b's timed
     variants (each shape, size, direction or bit depth once):
     per-call medians through the wrapper ("ms"), the kernels' device time
@@ -2056,6 +2135,7 @@ def kernel_line(kern, launches, decode_launches, batch_launches,
             "train_launches": train_launches.get(name, 0),
             "shard_launches": shard_launches.get(name, 0),
             "python_path_launches": python_path_launches.get(name, 0),
+            "bench_launches": bench_launches.get(name, 0),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -2105,14 +2185,16 @@ def main(argv=None):
     ref = run("3", phase_encoder, torch, dev)
     launches.update({k: v for k, v in ref["launches"].items()
                      if k in ("lap_frame", "dct_frame")})
-    run("3c", phase_lean, torch, dev, ref)
+    checked = {"analysis": sum(map(len, ref["packets"]))}
+    checked["device"] = run("3c", phase_lean, torch, dev, ref)
     run("3d", phase_fields, torch, dev)
     run("3e", phase_dering_candidates, torch, dev)
     launches["obmc_leaf_cells"] = run(
         "4", phase_sweep, torch, dev)["obmc_leaf_cells"]
     run("4c", phase_lean_small, torch, dev)
     run("4c sweep", phase_lean_small, torch, dev, sweep=True)
-    run("4c sweep 1080p", phase_lean_sweep_1080p, torch, dev)
+    checked["device+sweep"] = run("4c sweep 1080p", phase_lean_sweep_1080p,
+                                  torch, dev)
     decode_launches = run("6", phase_decoder, torch, dev, ref)
     batch_launches, batch_ref = run("7a", phase_batch_step, torch, dev)
     clips_launches, clips_ref = run("7b", phase_clips_batched, torch, dev,
@@ -2127,13 +2209,15 @@ def main(argv=None):
     shard_launches = run("9", phase_sharded, torch, dev, ref, batch_ref,
                          clips_ref)
     python_path_launches = run("10", phase_python_path, torch, dev)
+    bench_launches = run("11", phase_bench, torch, dev, checked)
     leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:
         raise AssertionError("imported: %s" % leaked)
     print(json.dumps(kernel_line(kern, launches, decode_launches,
                                  batch_launches, train_launches,
-                                 shard_launches, python_path_launches)))
+                                 shard_launches, python_path_launches,
+                                 bench_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

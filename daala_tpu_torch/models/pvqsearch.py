@@ -21,7 +21,13 @@ RDO (distortions, pulse search, rate model) runs in float32 with the
 same operation order and promotion as the JAX function, so a small
 fraction of near-tie decisions may differ between devices and from the
 host's f64 search; the host searches any band the device marks invalid
-(pulse budget overflow) itself, as in JAX.
+(pulse budget overflow) itself, as in JAX.  The pulse search computes
+what XLA:CPU makes of JAX's: its three `1 / sqrt` are `_rsqrt`, the
+rsqrt that XLA rewrites them into (an estimate and two Newton steps,
+not the correctly rounded value), and the phase-2 score is one fused
+multiply-add, as XLA:CPU contracts it.  Each of these moved a pulse
+between two lanes of a near-tie otherwise (320x192 smooth clip at
+quant 8).
 
 Differences from the JAX module, none of which changes a result:
 
@@ -340,6 +346,45 @@ def _rsqrt16(device):
     return torch.tensor(_RSQRT16, dtype=torch.float32, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _rsqrt_seed(device):
+    """The 12-bit estimate of x86's rsqrtps as int32 float bit patterns:
+    entry p * 1024 + i covers [2^p (1 + i/1024), 2^p (1 + (i+1)/1024))
+    and holds round(2^13 / sqrt(its midpoint)) / 2^13 (every entry in
+    [0.5, 1), exponent 126)."""
+    mid = (1.0 + (np.arange(1024) + 0.5) / 1024.0)
+    mid = np.concatenate([mid, 2.0 * mid])
+    est = (np.rint(8192.0 / np.sqrt(mid)) / 8192.0).astype(np.float32)
+    return torch.from_numpy(est.view(np.int32)).to(device)
+
+
+def _fma32(a, b, c):
+    """The fused multiply-add a * b + c of float32 tensors (c may be a
+    float): the product is exact in float64, so the result is rounded
+    once to float32 wherever the float64 sum is exact, and otherwise
+    differs from one rounding only where that sum lands on a float32
+    midpoint (about one case in 2^29)."""
+    return (a.double() * b.double() + c).float()
+
+
+def _rsqrt(x):
+    """1 / sqrt(x) of a float32 tensor of positive normal values or
+    zeros, as XLA:CPU computes JAX's `1.0 / jnp.sqrt(x)`: XLA rewrites
+    it into rsqrt, which it evaluates as the 12-bit rsqrtps estimate
+    (`_rsqrt_seed`, scaled by the exponent) refined by two Newton steps,
+    u = fma(x y, y, -1), y = fma(-y / 2, u, y); zero gives inf.  About
+    one value in eight differs from the correctly rounded one."""
+    b = x.view(torch.int32)
+    e = (b >> 23) - 127
+    par = e & 1
+    seed = _rsqrt_seed(x.device)[(par << 10) | ((b >> 13) & 1023)]
+    y = (seed - (((e - par) >> 1) << 23)).view(torch.float32)
+    for _ in range(2):
+        u = _fma32(x * y, y, -1.0)
+        y = _fma32(y * -0.5, u, y)
+    return torch.where(x == 0, math.inf, y)
+
+
 def _pulse_search(xc, k, g2, lam, n, iters, lane_ok=None):
     """Vectorized greedy RDO pulse allocation.
 
@@ -360,8 +405,8 @@ def _pulse_search(xc, k, g2, lam, n, iters, lane_ok=None):
     xc = torch.where(lane_ok, xc, 0.0)
     x = xc.abs()
     xx = (x * x).sum(-1)
-    norm_1 = 1.0 / torch.sqrt(1e-30 + xx)
-    lamr = lam / (1e-30 + g2)
+    norm_1 = _rsqrt(1e-30 + xx)
+    lamr = _fconst(lam, g2) / (1e-30 + g2)
     kf = k.float()
     # Floor-projection init for k > 2 (host: k > 2 branch).
     l1 = x.sum(-1, keepdim=True)
@@ -394,9 +439,8 @@ def _pulse_search(xc, k, g2, lam, n, iters, lane_ok=None):
         score1 = (txy * txy) / tyy
         small = tyy <= 16.0
         tidx = tyy.clamp(1.0, 16.0).long() - 1
-        tyy_r = torch.where(small, rsq[tidx],
-                            1.0 / torch.sqrt(tyy.clamp_min(1.0)))
-        score2 = 2.0 * txy * norm_1[:, None] * tyy_r - rate_pen
+        tyy_r = torch.where(small, rsq[tidx], _rsqrt(tyy.clamp_min(1.0)))
+        score2 = _fma32(2.0 * txy * norm_1[:, None], tyy_r, -rate_pen)
         score = torch.where(phase2[:, None], score2, score1)
         score = torch.where(lane_ok, score, -math.inf)
         pos = score.argmax(-1)
@@ -408,7 +452,7 @@ def _pulse_search(xc, k, g2, lam, n, iters, lane_ok=None):
         yy = yy + torch.where(active, 2.0 * yold + 1.0, 0.0)
         i = i + one
     ok = i >= kf
-    cos_dist = xy / (1e-100 + torch.sqrt(xx * yy))
+    cos_dist = xy * _rsqrt(xx * yy)
     cos_dist = torch.where(k == 0, 0.0, cos_dist)
     y = torch.where(xc < 0, -yp, yp).to(torch.int32)
     y = torch.where((k == 0)[:, None], 0, y)
