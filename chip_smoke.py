@@ -192,14 +192,37 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    is above 0 with both clips; the translation clip's bytes equal the
    checked encode of the chosen configuration (phase 3, 3c or 4c's
    1080p run); both scaling walls are above 0.  Prints both JSON lines.
+12. The command-line tools (daala_tpu_torch/tools/encode.py and
+   decode.py, their main() in this process, files under build/cli/,
+   removed after): (a) phase 3's 1920x1080 clip written as y4m and
+   encoded on the card with phase 3's settings (-v 25 -z 7 --check, the
+   fast trial pass and its boost by default): its video packets equal
+   phase 3's card packets, lap_frame and dct_frame launched (counts
+   reset before); (b) that .ogv decoded on the card: phase 6's host
+   decoder frames, both kernels launched.  Prints the walls, the
+   encode's Mpix/s beside phase 3's API wall, and the host I/O alone
+   (reading the y4m, muxing phase 3's packets) as a share of the
+   encode wall.  (c) At 320x192 (textured_clip), every mode of the
+   CLI (CLI_MODES: -b 2 --check, --bitrate, two-pass, lossless, 10-bit,
+   4:2:2 input, 4:4:4, mono, --limit, -z 3, a -k 4 stream decoded also
+   with --seek, --config device and device+sweep, --workers 2 on 32
+   frames in 16-frame segments) on the card and with --device cpu: the
+   .ogv files (two-pass: both runs and the statistics) and the decoded
+   y4m files byte-identical; lossless launches no kernel and decodes to
+   the input; every other mode launches lap_frame and dct_frame in its
+   card decode and (but --workers, whose spawned workers count their
+   own) its card encode; device+sweep launches obmc_leaf_cells; the
+   --seek decode is the full decode from frame 6 on.  Prints each
+   mode's walls.
 5. A line of JSON with each kernel's route, source, launches (lap_frame
    and dct_frame from phase 3, obmc_blend from phase 2c,
    obmc_leaf_cells from phase 4b) and, beside them, its launches in
    phase 6's decode ("decode_launches"), in phases 7a-7b (both
    schedules; "batch_launches"), in phase 8a ("train_launches"), in
    phase 9's sharded paths ("shard_launches"), in phase 10's Python
-   run ("python_path_launches") and in phase 11's probe runs
-   ("bench_launches"), error, times and bound; then, as the
+   run ("python_path_launches"), in phase 11's probe runs
+   ("bench_launches") and in phase 12's card runs ("cli_launches"),
+   error, times and bound; then, as the
    last line, {"ok": true, "device": {"platform": "gpu", "kind": ...,
    "count": ...}}.
 
@@ -1006,7 +1029,7 @@ def luma_psnr(frames, packets, info):
 
 def phase_encoder(torch, dev):
     """Phase 3; returns its card run's launches, packets, device->host
-    bytes and luma PSNR."""
+    bytes, luma PSNR and wall."""
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.encoder import Encoder
     from daala_tpu_torch.utils import devstats
@@ -1048,7 +1071,7 @@ def phase_encoder(torch, dev):
     psnr = luma_psnr(frames, card_pk, headers.Info(pic_width=W, pic_height=H))
     print("encode: luma PSNR %.4f dB (port Decoder)" % psnr)
     return dict(launches=snap["launches"], packets=card_pk,
-                d2h_bytes=snap["d2h_bytes"], psnr=psnr)
+                d2h_bytes=snap["d2h_bytes"], psnr=psnr, wall=card_s)
 
 
 def _watch_band_search(calls):
@@ -1260,7 +1283,7 @@ def phase_sweep(torch, dev):
 
 def phase_decoder(torch, dev, ref):
     """Phase 6 on phase 3's card packets; returns the card decode's launch
-    counts."""
+    counts and the host decoder's frames."""
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.decoder import Decoder
     from daala_tpu_torch.utils import devstats
@@ -1307,7 +1330,7 @@ def phase_decoder(torch, dev, ref):
     for name in ("lap_frame", "dct_frame"):
         if snap["launches"].get(name, 0) <= 0:
             raise AssertionError("%s never launched in the decode" % name)
-    return snap["launches"]
+    return snap["launches"], host
 
 
 def table_rows(table):
@@ -1830,8 +1853,7 @@ def _same_frames(got, want, what):
 
 
 def _add_launches(total, snap):
-    for k, v in snap["launches"].items():
-        total[k] = total.get(k, 0) + v
+    sum_launches(total, snap["launches"])
 
 
 def phase_sharded(torch, dev, ref, batch_ref, clips_ref):
@@ -2097,15 +2119,260 @@ def phase_bench(torch, dev, checked):
     return launches
 
 
+CLI_DIR = os.path.join(HERE, "build", "cli")
+# Phase 12c's modes, name: (frames, chroma, bit depth, the encoder's
+# flags), each through tools/encode.py and tools/decode.py on the card
+# and on the CPU.
+CLI_MODES = {
+    "b2_check": (4, "420", 8, ["-v", "12", "-b", "2", "--check"]),
+    "bitrate": (4, "420", 8, ["--bitrate", "200000"]),
+    "two_pass": (4, "420", 8, ["--bitrate", "200000"]),
+    "lossless": (2, "420", 8, ["-v", "0", "-k", "1"]),
+    "10bit": (3, "420", 10, ["-v", "12", "--check"]),
+    "422": (3, "422", 8, ["-v", "12"]),
+    "444": (3, "444", 8, ["-v", "12", "--check"]),
+    "mono": (3, "mono", 8, ["-v", "12", "--check"]),
+    "limit": (4, "420", 8, ["-v", "15", "--limit", "2"]),
+    "z3": (3, "420", 8, ["-v", "15", "-z", "3"]),
+    "seek": (8, "420", 8, ["-v", "15", "-k", "4"]),
+    "device": (3, "420", 8, ["-v", "25", "--check", "--config", "device"]),
+    "device+sweep": (3, "420", 8, ["-v", "25", "--check", "--config",
+                                   "device+sweep"]),
+    "workers": (32, "420", 8, ["-v", "15", "-k", "16", "--workers", "2"]),
+}
+CLI_SEEK = ["--seek", "0.2"]  # frame 6, after the keyframe at frame 4
+
+
+def cli_frames(frames, chroma, depth):
+    """4:2:0 8-bit frames in another layout: chroma rows (4:2:2) or rows
+    and columns (4:4:4) repeated, no chroma (mono); at depth > 8 each
+    sample shifted up with its own low bits below."""
+    out = []
+    for y, cb, cr in frames:
+        planes = [y]
+        if chroma == "420":
+            planes += [cb, cr]
+        elif chroma == "422":
+            planes += [np.repeat(c, 2, 0) for c in (cb, cr)]
+        elif chroma == "444":
+            planes += [np.repeat(np.repeat(c, 2, 0), 2, 1) for c in (cb, cr)]
+        if depth > 8:
+            sh = depth - 8
+            planes = [(p.astype(np.uint16) << sh) | (p & ((1 << sh) - 1))
+                      for p in planes]
+        out.append(planes)
+    return out
+
+
+def write_y4m(path, frames, chroma="420", depth=8):
+    from daala_tpu_torch.utils.y4m import Y4MWriter
+    h, w = frames[0][0].shape
+    wr = Y4MWriter(path, w, h, chroma=chroma, aspect=(1, 1), depth=depth)
+    for fr in frames:
+        wr.write_frame(fr)
+    wr.close()
+
+
+def sum_launches(total, launches):
+    """Add the counts of `launches` into `total`; returns `total`."""
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def read_file(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def cli_run(torch, tool, args):
+    """daala_tpu_torch.tools.<tool>.main(args) in this process; returns
+    its wall and the kernel launches counted in it (reset just before)."""
+    import importlib
+    from daala_tpu_torch.utils import devstats
+    main = importlib.import_module("daala_tpu_torch.tools." + tool).main
+    devstats.reset()
+    t0 = time.perf_counter()
+    main([str(a) for a in args])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, devstats.snapshot()["launches"]
+
+
+def phase_cli_1080p(torch, dev, ref, host_frames):
+    """Phase 12a-b against phase 3's results `ref` and phase 6's host
+    decoder frames; returns the kernels' launches in both runs."""
+    import io
+    from daala_tpu_torch.utils.ogg import OggPageWriter, read_ogg_packets
+    from daala_tpu_torch.utils.profile import H, NFRAMES, W, translation_clip
+    os.makedirs(CLI_DIR, exist_ok=True)
+    src, ogv, out = (os.path.join(CLI_DIR, "1080p" + e)
+                     for e in (".y4m", ".ogv", ".out.y4m"))
+    write_y4m(src, translation_clip())
+    # The host I/O alone: reading the clip, muxing phase 3's packets.
+    t0 = time.perf_counter()
+    nread = len(read_y4m(src))
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mux = OggPageWriter(io.BytesIO(), serial=0x0da1a)
+    for p in ref["packets"]:
+        mux.add_packet(p, 0, flush=True)
+    mux.close()
+    mux_s = time.perf_counter() - t0
+    enc_s, enc_l = cli_run(torch, "encode", [src, ogv, "-v", "25", "-z", "7",
+                                             "--check", "--device", dev])
+    with open(ogv, "rb") as f:
+        pk = [p for p, _ in read_ogg_packets(f)]
+    if pk[3:] != ref["packets"]:
+        raise AssertionError("the CLI's 1080p packets differ from phase 3's "
+                             "(%d vs %d)" % (len(pk) - 3, len(ref["packets"])))
+    dec_s, dec_l = cli_run(torch, "decode", [ogv, out, "--device", dev])
+    frames = read_y4m(out)
+    if not len(frames) == len(host_frames) == nread:
+        raise AssertionError("the CLI decoded %d frames, the host decoder %d"
+                             % (len(frames), len(host_frames)))
+    for i, (a, b) in enumerate(zip(frames, host_frames)):
+        for pli in range(3):
+            if not np.array_equal(a[pli], b[pli]):
+                raise AssertionError("the CLI's decoded frame %d plane %d "
+                                     "differs from phase 6's host frame"
+                                     % (i, pli))
+    for name in ("lap_frame", "dct_frame"):
+        if enc_l.get(name, 0) <= 0 or dec_l.get(name, 0) <= 0:
+            raise AssertionError("%s never launched in the CLI's 1080p "
+                                 "encode or decode" % name)
+    mpix = NFRAMES * W * H / 1e6
+    print("cli 1080p: encode %d packets == phase 3's, encoder check passed; "
+          "decode %d frames == phase 6's host decoder; launches encode %s, "
+          "decode %s" % (len(pk) - 3, len(frames), enc_l, dec_l))
+    print("cli 1080p: encode wall %.3f s, %.4f Mpix/s (phase 3's API wall "
+          "%.3f s, %.4f Mpix/s; ratio %.3f); decode wall %.3f s; host I/O "
+          "alone: y4m read %.4f s, ogg mux %.4f s, %.4f of the encode wall "
+          "[information only]"
+          % (enc_s, mpix / enc_s, ref["wall"], mpix / ref["wall"],
+             enc_s / ref["wall"], dec_s, read_s, mux_s,
+             (read_s + mux_s) / enc_s))
+    return sum_launches(sum_launches({}, enc_l), dec_l)
+
+
+def read_y4m(path):
+    from daala_tpu_torch.utils.y4m import Y4MReader
+    rd = Y4MReader(path)
+    frames = list(rd)
+    rd.close()
+    return frames
+
+
+def equal_frames(got, want):
+    return len(got) == len(want) and all(
+        np.array_equal(a, b) for fa, fb in zip(got, want)
+        for a, b in zip(fa, fb))
+
+
+def cli_mode(torch, name, d, src):
+    """Phase 12c's mode `name` on device `d`: the CLI encode (both runs of
+    two-pass) and decode (and the --seek decode) of the y4m `src`.
+    Returns the paths of what they wrote, their walls, and the kernels'
+    launches in the encodes and in the decodes."""
+    flags = CLI_MODES[name][3]
+    tag = name + (".cpu" if d == "cpu" else ".card")
+    out = lambda ext: os.path.join(CLI_DIR, tag + ext)  # noqa: E731
+    paths, walls, enc, dec = [out(".ogv"), out(".y4m")], [], {}, {}
+    if name == "two_pass":
+        stats = out(".stats")
+        if os.path.exists(stats):
+            os.unlink(stats)
+        paths += [out(".pass1.ogv"), stats]
+        s, l = cli_run(torch, "encode", [src, paths[2], "--two-pass", stats,
+                                         "--device", d])
+        walls.append(s)
+        sum_launches(enc, l)
+        flags = flags + ["--two-pass", stats]
+    s, l = cli_run(torch, "encode", [src, paths[0]] + flags + ["--device", d])
+    walls.append(s)
+    sum_launches(enc, l)
+    s, l = cli_run(torch, "decode", [paths[0], paths[1], "--device", d])
+    walls.append(s)
+    sum_launches(dec, l)
+    if name == "seek":
+        paths.append(out(".seek.y4m"))
+        s, l = cli_run(torch, "decode", [paths[0], paths[-1], "--device", d]
+                       + CLI_SEEK)
+        walls.append(s)
+        sum_launches(dec, l)
+    return paths, walls, enc, dec
+
+
+def phase_cli_modes(torch, dev):
+    """Phase 12c; returns the kernels' launches in the card's runs."""
+    base = textured_clip(320, 192, max(m[0] for m in CLI_MODES.values()))
+    total = {}
+    for name, (n, chroma, depth, flags) in CLI_MODES.items():
+        frames = cli_frames(base[:n], chroma, depth)
+        src = os.path.join(CLI_DIR, name + ".y4m")
+        write_y4m(src, frames, chroma, depth)
+        paths, walls, enc, dec = cli_mode(torch, name, str(dev), src)
+        cpu_paths, cpu_walls, _, _ = cli_mode(torch, name, "cpu", src)
+        for a, b in zip(paths, cpu_paths):
+            if read_file(a) != read_file(b):
+                raise AssertionError("cli %s: %s differs between the card and"
+                                     " the cpu" % (name, os.path.basename(a)))
+        if name == "lossless":
+            if any(enc.values()) or any(dec.values()):
+                raise AssertionError("cli lossless: kernels launched: %s %s"
+                                     % (enc, dec))
+            if not equal_frames(read_y4m(paths[1]), frames):
+                raise AssertionError("cli lossless: the decoded frames are "
+                                     "not the input")
+        else:
+            for k in ("lap_frame", "dct_frame"):
+                # The spawned workers count their own launches.
+                if dec.get(k, 0) <= 0 or (name != "workers"
+                                          and enc.get(k, 0) <= 0):
+                    raise AssertionError("cli %s: %s never launched on the "
+                                         "card" % (name, k))
+        if name == "device+sweep" and enc.get("obmc_leaf_cells", 0) <= 0:
+            raise AssertionError("cli device+sweep: obmc_leaf_cells never "
+                                 "launched")
+        if name == "seek" and not equal_frames(read_y4m(paths[-1]),
+                                               read_y4m(paths[1])[6:]):
+            raise AssertionError("cli seek: the frames written are not the "
+                                 "full decode's from frame 6 on")
+        sum_launches(total, enc)
+        sum_launches(total, dec)
+        print("cli %s: %d frames %s %d-bit [%s]: .ogv (%d bytes) and y4m "
+              "equal on the card and the cpu; walls (encode, decode) card %s "
+              "s, cpu %s s; card launches encode %s, decode %s [walls "
+              "information only]"
+              % (name, n, chroma, depth, " ".join(flags),
+                 os.path.getsize(paths[0]), ["%.2f" % v for v in walls],
+                 ["%.2f" % v for v in cpu_walls], enc, dec))
+    return total
+
+
+def phase_cli(torch, dev, ref, host_frames):
+    """Phase 12: the command-line encoder and decoder on the card; returns
+    each kernel's launches in the runs of this process (the spawned
+    --workers count their own)."""
+    import shutil
+    try:
+        total = phase_cli_1080p(torch, dev, ref, host_frames)
+        sum_launches(total, phase_cli_modes(torch, dev))
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return total
+
+
 def kernel_line(kern, launches, decode_launches, batch_launches,
                 train_launches, shard_launches, python_path_launches,
-                bench_launches):
+                bench_launches, cli_launches):
     """The kernels line: each kernel's launches on the encoder's path, in
     the decode, in the batched phases 7a-7b, in the training
     statistics (phase 8a), on the sharded paths of phase 9
     ("shard_launches": 9a, 9b, 9d and 9e, each tile a launch), on
-    the encoder's Python coefficient path (phase 10's Python run) and in
-    the benchmark's probe runs (phase 11, "bench_launches"), and its
+    the encoder's Python coefficient path (phase 10's Python run), in
+    the benchmark's probe runs (phase 11, "bench_launches") and in the
+    command-line tools' card runs of this process (phase 12,
+    "cli_launches"), and its
     numbers summed
     over phase 2's and 2b's timed
     variants (each shape, size, direction or bit depth once):
@@ -2136,6 +2403,7 @@ def kernel_line(kern, launches, decode_launches, batch_launches,
             "shard_launches": shard_launches.get(name, 0),
             "python_path_launches": python_path_launches.get(name, 0),
             "bench_launches": bench_launches.get(name, 0),
+            "cli_launches": cli_launches.get(name, 0),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -2195,7 +2463,7 @@ def main(argv=None):
     run("4c sweep", phase_lean_small, torch, dev, sweep=True)
     checked["device+sweep"] = run("4c sweep 1080p", phase_lean_sweep_1080p,
                                   torch, dev)
-    decode_launches = run("6", phase_decoder, torch, dev, ref)
+    decode_launches, host_frames = run("6", phase_decoder, torch, dev, ref)
     batch_launches, batch_ref = run("7a", phase_batch_step, torch, dev)
     clips_launches, clips_ref = run("7b", phase_clips_batched, torch, dev,
                                     ref)
@@ -2210,6 +2478,7 @@ def main(argv=None):
                          clips_ref)
     python_path_launches = run("10", phase_python_path, torch, dev)
     bench_launches = run("11", phase_bench, torch, dev, checked)
+    cli_launches = run("12", phase_cli, torch, dev, ref, host_frames)
     leaked = sorted(m for m in sys.modules if m in ("jax", "daala_tpu")
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:
@@ -2217,7 +2486,7 @@ def main(argv=None):
     print(json.dumps(kernel_line(kern, launches, decode_launches,
                                  batch_launches, train_launches,
                                  shard_launches, python_path_launches,
-                                 bench_launches)))
+                                 bench_launches, cli_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

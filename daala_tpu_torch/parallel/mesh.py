@@ -102,12 +102,14 @@ def batch_encode_step(frames, bs=1, quant=3840):
 # -- 2. host segment parallelism --------------------------------------------
 
 def _encode_segment(args):
-    (frames, info_kwargs, enc_kwargs, b_frames) = args
+    (frames, info_kwargs, enc_kwargs, b_frames, enc_attrs) = args
     from daala_tpu_torch.codec import headers as H
     from daala_tpu_torch.codec.encoder import Encoder
     info = H.Info(**info_kwargs)
     enc = Encoder(info, **enc_kwargs)
     enc.b_frames = b_frames
+    for name, value in enc_attrs.items():
+        setattr(enc, name, value)
     packets = []
     for planes in frames:
         packets.extend(enc.encode_frame(planes))
@@ -123,7 +125,7 @@ def _share_cores(n_threads):
 
 
 def encode_clip_parallel(frames, info_kwargs, enc_kwargs=None, b_frames=0,
-                         segment_len=32, workers=None):
+                         segment_len=32, workers=None, enc_attrs=None):
     """Encode a clip with keyframe-aligned segments in parallel processes.
 
     frames: list of per-frame plane lists.  Each segment starts with a
@@ -132,9 +134,12 @@ def encode_clip_parallel(frames, info_kwargs, enc_kwargs=None, b_frames=0,
     segment_len must be a multiple of 16 (OD_MAX_REORDER) so the coded
     display numbering stays aligned across segment boundaries.
     enc_kwargs go to the port's Encoder, `device` among them (default:
-    the card).  The workers are spawned, not forked (a process forked
-    after CUDA is initialised cannot use it), and share the host's cores.
-    Returns the flat packet list in display order."""
+    the card).  enc_attrs ({name: value}) are set on each segment's
+    Encoder after b_frames, for the switches it takes as attributes
+    (mv_max_level, enable_encoder_check, ...).  The workers are spawned,
+    not forked (a process forked after CUDA is initialised cannot use
+    it), and share the host's cores.  Returns the flat packet list in
+    display order."""
     assert segment_len % 16 == 0
     enc_kwargs = dict(enc_kwargs or {})
     segs = [frames[i:i + segment_len]
@@ -142,7 +147,8 @@ def encode_clip_parallel(frames, info_kwargs, enc_kwargs=None, b_frames=0,
     # Force a keyframe at each segment start by capping keyframe_rate.
     info_kwargs = dict(info_kwargs)
     info_kwargs.setdefault("keyframe_rate", segment_len)
-    args = [(seg, info_kwargs, enc_kwargs, b_frames) for seg in segs]
+    args = [(seg, info_kwargs, enc_kwargs, b_frames, dict(enc_attrs or {}))
+            for seg in segs]
     if len(segs) == 1 or (workers is not None and workers <= 1):
         out = [_encode_segment(a) for a in args]
     else:

@@ -1,7 +1,8 @@
 """The port stands alone: no module of daala_tpu_torch, nor chip_smoke.py,
 imports anything of the JAX package, and the port's copies of the JAX
 package's jax-free host codec (codec/, entropy/, native/, the numpy
-ops/, utils/logging.py, utils/dump.py, utils/y4m.py, utils/metrics.py)
+ops/, utils/logging.py, utils/dump.py, utils/y4m.py, utils/metrics.py,
+utils/ogg.py, utils/granule.py)
 and of its training subsystem (train/) equal their originals apart
 from their import lines and the definitions listed in COPIES, which
 carry the port's device tier where the original has its JAX one.  The
@@ -108,8 +109,10 @@ COPIES = {
                     "train", "main"),
     "train/zigzag.py": ("measure_mags", "read_luma", "main"),
     "utils/dump.py": (),
+    "utils/granule.py": (),
     "utils/logging.py": (),
     "utils/metrics.py": (),
+    "utils/ogg.py": (),
     "utils/y4m.py": (),
 }
 NATIVE_SOURCES = ["ec_core.cc", "bs_enc.inc", "frame_dec.inc",
@@ -143,7 +146,9 @@ def test_device_layer_imports_no_daala_tpu_and_no_jax():
                  "daala_tpu_torch.parallel.dryrun", "daala_tpu_torch.train",
                  "daala_tpu_torch.train.vq", "daala_tpu_torch.train.gain",
                  "daala_tpu_torch.train.zigzag",
-                 "daala_tpu_torch.utils.sweep_quality"):
+                 "daala_tpu_torch.utils.sweep_quality",
+                 "daala_tpu_torch.tools.encode",
+                 "daala_tpu_torch.tools.decode"):
         assert name in mods
     code = ("import importlib, sys\n"
             "for m in %r:\n"
