@@ -16,10 +16,10 @@ Phases, each printing its lines; any failure raises and exits nonzero:
 
 1. Environment: the card's name and power limit (nvidia-smi), its
    maximum SM clock, torch and CUDA versions; builds the port's native
-   host engine and the three CUDA sources (lap_frame, dct_frame, obmc_leaf;
-   into build/, first use only, all nvcc runs at once) and prints each
-   build's seconds and ptxas's registers, stack and spills of every
-   kernel instantiation.
+   host engine and the five CUDA sources (lap_frame, dct_frame,
+   obmc_leaf, pulse_search, sad_fields; into build/, first use only,
+   all nvcc runs at once) and prints each build's seconds and ptxas's
+   registers, stack and spills of every kernel instantiation.
 2. Kernel vs plain PyTorch version, on the card, at the 1080p encoder's
    shapes: lap_frame forward and inverse on a (1088, 1920) luma plane
    (superblock 64) and a (544, 960) chroma plane (superblock 32);
@@ -29,7 +29,8 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    Every timed call finds the 50 MB L2 cold (`flush_l2` before it), as
    the main path does: CUDA-event times of calls through the wrapper
    ("kernel"), the kernels' own device time from a torch.profiler trace
-   ("device") and the bound (see `bound`).  Beside them, as information,
+   ("device") and the bound (see `bound`); the plain versions over
+   fewer calls (PLAIN_REPS).  Beside them, as information,
    a clone() of each plane: what a launch that reads and writes the
    plane's bytes takes on this card.
 2b. The OBMC kernels against their plain versions, on the padded 1080p
@@ -47,6 +48,14 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    frame (320 and 160 bytes wide: rows 16-byte but not 64-byte
    aligned); obmc_leaf_cells likewise; and a misaligned plane, which
    the wrappers refuse.
+2d. (Run after phase 3c, whose inputs it takes.)  The PVQ search's
+   kernels against their plain versions on the card, bit for bit, timed
+   as in phase 2: pulse_loop (csrc/pulse_search.cu, the greedy loop of
+   models/pvqsearch.py _pulse_search) on the arguments of every
+   band_search call of phase 3c's traced keyframe and first inter frame
+   (each band length), and sad_fields (csrc/sad_fields.cu, the SAD
+   fields of models/mefield.py) on the 1080p translation pair at
+   r = 16, as one tile and as the 2 x 2 tiles of phase 9's mesh.
 2c. Device OBMC prediction: models/obmc.py predict_frame_plane_device on
    the card against the host predictor (the port's numpy copy of it,
    codec/mc.py mc_predict_frame) on a random 1080p mesh with every subdivision level, all three
@@ -60,8 +69,8 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    run's packets to daala_tpu's host encoder).  The dering RDO's
    candidates (models/restore.py dering_candidates_device) are filtered
    on the device tier in both runs.  The packets must be byte-identical,
-   and both analysis kernels must have launched in the card's run
-   (launch counts are reset just before it); prints the
+   and both analysis kernels and sad_fields must have launched in the
+   card's run (launch counts are reset just before it); prints the
    dering_candidates span of both runs.
 3c. The lean tier (bench.py's `device` configuration:
    use_device_analysis=False, use_device_pvq=True) on phase 3's clip
@@ -70,8 +79,9 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    search, byte-identical to daala_tpu's host encoder) and its bytes
    within -10% / +5% of phase 3's (on this clip the lean search, like
    JAX's, codes the inter frames about 6% smaller than the host
-   search); lap_frame and dct_frame launched; every band_search call
-   ran on the card; under half of phase 3's device->host bytes.  Prints
+   search); lap_frame, dct_frame, pulse_loop and sad_fields launched;
+   every band_search call ran on the card; under half of phase 3's
+   device->host bytes.  Prints
    its devstats, Mpix/s, the search_frame and SAD-field spans, the rows
    the search marked invalid (searched on the host), and, from
    utils/profile.py's torch.profiler trace of a fresh encoder's
@@ -187,8 +197,9 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    configurations probed, then the fastest on bench.py's two 1080p
    clips, two runs each) and `python -m
    daala_tpu_torch.utils.bench_scaling` at its defaults.  Every probe
-   is a measurement, not an error, with lap_frame and dct_frame
-   launched in it (and obmc_leaf_cells in device+sweep's); the headline
+   is a measurement, not an error, with lap_frame, dct_frame and
+   sad_fields launched in it (pulse_loop in the lean tier's two,
+   obmc_leaf_cells in device+sweep's); the headline
    is above 0 with both clips; the translation clip's bytes equal the
    checked encode of the chosen configuration (phase 3, 3c or 4c's
    1080p run); both scaling walls are above 0.  Prints both JSON lines.
@@ -214,9 +225,11 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    own) its card encode; device+sweep launches obmc_leaf_cells; the
    --seek decode is the full decode from frame 6 on.  Prints each
    mode's walls.
-5. A line of JSON with each kernel's route, source, launches (lap_frame
-   and dct_frame from phase 3, obmc_blend from phase 2c,
-   obmc_leaf_cells from phase 4b) and, beside them, its launches in
+5. A line of JSON with each kernel's route, source, launches (lap_frame,
+   dct_frame and sad_fields from phase 3, pulse_loop from phase 3c,
+   obmc_blend from phase 2c, obmc_leaf_cells from phase 4b) and, beside
+   them, its launches in phase 3 ("analysis_launches"), 3c
+   ("lean_launches"), 4b ("sweep_launches"), in
    phase 6's decode ("decode_launches"), in phases 7a-7b (both
    schedules; "batch_launches"), in phase 8a ("train_launches"), in
    phase 9's sharded paths ("shard_launches"), in phase 10's Python
@@ -246,6 +259,9 @@ BUILD = os.path.join(HERE, "build", "daala_tpu_torch")
 
 SEED = 0
 BATCH, REPEATS = 20, 5  # timing: REPEATS batches of BATCH launches
+# The plain versions, which take milliseconds to a tenth of a second a
+# call, are timed over fewer: (batch, repeats, warm-up calls).
+PLAIN_REPS = (2, 2, 1)
 
 
 def random_leaves(rng, log_x, log_y, plane_shape, pad, count=None):
@@ -389,16 +405,16 @@ def flush_l2(torch):
     _L2_FLUSH[0].fill_(1)
 
 
-def batch_ms(torch, fn):
-    """Median over REPEATS of the mean CUDA-event time of BATCH calls,
-    each timed alone after flush_l2."""
-    for _ in range(3):
+def batch_ms(torch, fn, batch=BATCH, repeats=REPEATS, warm=3):
+    """Median over `repeats` of the mean CUDA-event time of `batch` calls,
+    each timed alone after flush_l2, after `warm` calls."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     out = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         events = []
-        for _ in range(BATCH):
+        for _ in range(batch):
             flush_l2(torch)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -407,7 +423,7 @@ def batch_ms(torch, fn):
             end.record()
             events.append((start, end))
         torch.cuda.synchronize()
-        out.append(sum(a.elapsed_time(b) for a, b in events) / BATCH)
+        out.append(sum(a.elapsed_time(b) for a, b in events) / batch)
     return statistics.median(out)
 
 
@@ -452,19 +468,22 @@ def trace_ms(torch, fn, names, calls=10, tries=3, cats=("kernel",),
 
 
 # The bound of a call: the larger of its bytes over the card's memory
-# rate and its int32 operations over 132 SMs x 64 int32 lanes x the
-# maximum SM clock that nvidia-smi reads (phase 1 sets "ops_per_s").
-# Input bytes count once and output bytes once; operations are counted
-# from the code (the functions below).
-RATES = {"bytes_per_s": 3.35e12, "ops_per_s": None}
+# rate and its operations over the card's peak rate for their type:
+# int32 operations over 132 SMs x 64 int32 lanes x the maximum SM clock
+# that nvidia-smi reads (phase 1 sets "ops_per_s"), float32 operations
+# over the published 67 TFLOP/s outside the tensor cores
+# ("flops_per_s", at the 700 W limit).  Input bytes count once and
+# output bytes once; operations are counted from the code (the
+# functions below).
+RATES = {"bytes_per_s": 3.35e12, "ops_per_s": None, "flops_per_s": 67e12}
 SM_INT32_LANES = 132 * 64
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, rate="ops_per_s"):
     """(ms, "bytes" or "operations") of a call that moves nbytes and
-    does ops int32 operations."""
+    does ops operations of the type that RATES[rate] counts."""
     b_ms = nbytes / RATES["bytes_per_s"] * 1e3
-    o_ms = ops / RATES["ops_per_s"] * 1e3
+    o_ms = ops / RATES[rate] * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -570,7 +589,8 @@ def phase_environment(torch):
     from concurrent.futures import ThreadPoolExecutor
     from daala_tpu_torch import native
     from daala_tpu_torch.ops.cuda import (_build, dct_kernels, lap_kernels,
-                                          obmc_kernels)
+                                          obmc_kernels, pulse_kernels,
+                                          sad_kernels)
     from daala_tpu_torch.utils import devstats
 
     def native_lib():
@@ -579,14 +599,15 @@ def phase_environment(torch):
 
     # g++ and one nvcc per source, all at once; map() re-raises a failure.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
-        list(ex.map(lambda f: f(), (native_lib, lap_kernels.build,
-                                    dct_kernels.build, obmc_kernels.build)))
-    print("build: native engine, %s.cu, %s.cu and %s.cu ready in %.1f s, in "
-          "parallel; nvcc (sm_90a) seconds of the sources built now (none "
-          "if build/ held them): %s"
+    builds = (native_lib, lap_kernels.build, dct_kernels.build,
+              obmc_kernels.build, pulse_kernels.build, sad_kernels.build)
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda f: f(), builds))
+    print("build: native engine, %s.cu, %s.cu, %s.cu, %s.cu and %s.cu ready "
+          "in %.1f s, in parallel; nvcc (sm_90a) seconds of the sources "
+          "built now (none if build/ held them): %s"
           % (lap_kernels.NAME, dct_kernels.NAME, obmc_kernels.SOURCE,
-             time.perf_counter() - t0,
+             pulse_kernels.NAME, sad_kernels.NAME, time.perf_counter() - t0,
              {k: round(v, 1) for k, v in devstats.BUILDS.items()}))
     for src, text in sorted(_build.PTXAS.items()):
         for fn, regs, stack, st, ld in _build.ptxas_report(text):
@@ -611,15 +632,38 @@ CASES = []  # (label, kernel ms, device ms, plain ms, bound ms) of record
 TIME_PLAIN = True  # False: record checks plain but does not time it
 
 
-def record(torch, res, name, label, kern, plain, work, trace_names):
-    """Time kern (CUDA events through the wrapper, and its kernels'
-    device time in a profiler trace) and plain (CUDA events), each call
-    with a cold L2, hold kern's output to plain's bit for bit, and add
-    the bound of `work` (bytes, ops)."""
+def output_err(torch, got, want):
+    """(max |got - want|, bit for bit equal) over the outputs, a tensor
+    or a tuple of tensors."""
     from daala_tpu_torch.ops.cuda.obmc_kernels import bits
-    err = int((bits(kern()).long() - bits(plain()).long()).abs().max().item())
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    err, same = 0, len(got) == len(want)
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), False
+        if g.numel() == 0:
+            continue
+        if g.is_floating_point():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+            same &= torch.equal(g.view(torch.int32), w.view(torch.int32))
+        else:
+            d = int((bits(g).long() - bits(w).long()).abs().max().item())
+            err, same = max(err, d), same and d == 0
+    return err, same
+
+
+def record(torch, res, name, label, kern, plain, work, trace_names,
+           plain_reps=PLAIN_REPS):
+    """Time kern (CUDA events through the wrapper, and its kernels'
+    device time in a profiler trace) and plain (CUDA events; plain_reps:
+    batch_ms's batch, repeats and warm-up calls), each call with a cold
+    L2, hold kern's output to plain's bit for bit, and add the bound of
+    `work` (bytes, ops[, the RATES key of the ops' type])."""
+    err, same = output_err(torch, kern(), plain())
     k_ms = batch_ms(torch, kern)
-    p_ms = batch_ms(torch, plain) if TIME_PLAIN else float("nan")
+    p_ms = (batch_ms(torch, plain, *plain_reps) if TIME_PLAIN
+            else float("nan"))
     d_ms, seen, calls = trace_ms(torch, kern, trace_names)
     b_ms, by = bound(*work)
     r = res.setdefault(name, dict(max_abs_err=0, ms=0.0, plain_ms=0.0,
@@ -634,12 +678,12 @@ def record(torch, res, name, label, kern, plain, work, trace_names):
     r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms
     r["variants"] += 1
     CASES.append((label, k_ms, d_ms, p_ms, b_ms))
-    print("kernel: %-44s max_abs_err %d  kernel %.4f ms  device %s ms "
+    print("kernel: %-44s max_abs_err %g  kernel %.4f ms  device %s ms "
           "(%d events, %d calls)  plain %.4f ms  bound %.4f ms (%s; %d B, "
           "%d ops)"
           % (label, err, k_ms, "%.4f" % d_ms if d_ms is not None else "none",
              seen, calls, p_ms, b_ms, by, work[0], work[1]))
-    if err:
+    if err or not same:
         raise AssertionError("%s differs from its plain version" % label)
 
 
@@ -1065,7 +1109,7 @@ def phase_encoder(torch, dev):
     print("encode: dering_candidates span %s %.4f s, cpu %.4f s (%d frames)"
           % (dev, snap["spans_s"]["dering_candidates"],
              cpu_spans["dering_candidates"], NFRAMES))
-    for name in ("lap_frame", "dct_frame"):
+    for name in ("lap_frame", "dct_frame", "sad_fields"):
         if snap["launches"].get(name, 0) <= 0:
             raise AssertionError("%s never launched on the main path" % name)
     psnr = luma_psnr(frames, card_pk, headers.Info(pic_width=W, pic_height=H))
@@ -1093,6 +1137,85 @@ def _watch_band_search(calls):
     return restore
 
 
+def watch_pulse_loop(calls):
+    """Replace pvqsearch.pulse_loop by a wrapper that appends its
+    arguments to `calls` (the tensors themselves: _pulse_search makes
+    them for the call and nothing writes them after it); returns the
+    function that restores it."""
+    from daala_tpu_torch.models import pvqsearch as PS
+    real = PS.pulse_loop
+
+    def watched(*args):
+        calls.append(args)
+        return real(*args)
+    PS.pulse_loop = watched
+
+    def restore():
+        PS.pulse_loop = real
+    return restore
+
+
+def pulse_work(args):
+    """(bytes, ops, "flops_per_s") of pulse_loop on its arguments `args`.
+
+    Bytes: x, yp, rate_pen (float32) and lane_ok (bool) of every lane
+    read once, the 6 float32 row values and the two tables read once,
+    yp and the 3 row sums written once.
+
+    Operations: float32 operations of the steps that these rows take
+    (each row min(iters, ceil(kf - i)) of them, the first ones scoring
+    the correlation, those from i >= kf - rdo_pulses on the rate
+    penalised score): per lane and step 7 (txy, tyy's three, the
+    square, the division, the comparison of the argmax) or 11 (txy,
+    tyy's three, 2 txy norm_1's two, the fused multiply-add in float64
+    counted as 4 float32 operations, the comparison); the Newton steps
+    of lanes past the table are not counted, so this is a least count;
+    per row and step 5 for the update."""
+    x, _, _, _, i, kf, rdo, _, _, _, iters = args
+    m, n = x.shape
+    nbytes = m * n * 13 + m * 24 + 16 * 4 + 2048 * 4 + m * n * 4 + m * 12
+    kf, i, rdo = (t.double().cpu().numpy() for t in (kf, i, rdo))
+    trips = np.minimum(iters, np.maximum(0.0, np.ceil(kf - i)))
+    p2 = np.maximum(0.0, trips - np.maximum(0.0, np.ceil(kf - rdo - i)))
+    ops = n * (7 * (trips - p2).sum() + 11 * p2.sum()) + 5 * trips.sum()
+    return nbytes, int(ops), "flops_per_s"
+
+
+def sad_work(shape, r, nv, nh):
+    """(bytes, ops) of sad_fields on a (vh, vw) tile: the tile and its
+    reference window read once, the (noff, nv, nh) int32 fields written
+    once; one int32-lane instruction per 4 byte differences (a
+    vabsdiff4 with its accumulation: 4 differences, magnitudes and
+    sums), noff x vh x vw differences."""
+    vh, vw = shape
+    noff = (2 * r + 1) ** 2
+    nbytes = vh * vw + (vh + 2 * r) * (vw + 2 * r) + 4 * noff * nv * nh
+    return nbytes, noff * vh * vw // 4
+
+
+def sad_tile_cases(cur, ref_padded, pad, vis, nvmvbs, nhmvbs, r, rows,
+                   cols):
+    """sad_fields' arguments for each tile of the fields cut over a (rows,
+    cols) mesh as models/mefield.py fullpel_sad_fields cuts them: (label,
+    current tile, reference window, nv, nh, oy, ox), numpy, the tiles
+    with visible pixels."""
+    from daala_tpu_torch.models import mefield as MF
+    from daala_tpu_torch.parallel.sharding import Sharding
+    nvb, nhb = nvmvbs // 8 + 1, nhmvbs // 8 + 1
+    mesh = np.full((rows, cols), None, dtype=object)
+    out = []
+    for _, (rs, cs), (oy, ox), box in MF._window_tiles(
+            vis, nvb, nhb, Sharding(mesh, ("dp", "sp"))):
+        if box is None:
+            continue
+        out.append(("%dx%d tile, vertices %d:%d x %d:%d"
+                    % (rows, cols, rs.start, rs.stop, cs.start, cs.stop),
+                    np.ascontiguousarray(cur[box[0]:box[1], box[2]:box[3]]),
+                    MF.tile_window(ref_padded, pad, r, box),
+                    rs.stop - rs.start, cs.stop - cs.start, oy, ox))
+    return out
+
+
 def lean_encoder(info, device, **kw):
     from daala_tpu_torch.codec.encoder import Encoder
     return Encoder(info, device=device, use_device_analysis=False,
@@ -1100,7 +1223,10 @@ def lean_encoder(info, device, **kw):
 
 
 def phase_lean(torch, dev, ref):
-    """Phase 3c against phase 3's results `ref`; returns its bytes."""
+    """Phase 3c against phase 3's results `ref`; returns its bytes, its
+    launches and, labelled by frame, the arguments of every pulse_loop
+    call of its trace's keyframe and inter frame (one per band_search
+    call)."""
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.utils import devstats
     from daala_tpu_torch.utils.profile import (ENCODER_KW as kw, H,
@@ -1147,7 +1273,7 @@ def phase_lean(torch, dev, ref):
         if abs(psnr - ref["psnr"]) >= 0.3:
             raise AssertionError("lean PSNR %.4f not within 0.3 dB of %.4f"
                                  % (psnr, ref["psnr"]))
-        for name in ("lap_frame", "dct_frame"):
+        for name in ("lap_frame", "dct_frame", "pulse_loop", "sad_fields"):
             if snap["launches"].get(name, 0) <= 0:
                 raise AssertionError("%s never launched in the lean tier"
                                      % name)
@@ -1160,9 +1286,16 @@ def phase_lean(torch, dev, ref):
         # band length and rows.
         del calls[:]
         os.makedirs(BUILD, exist_ok=True)
-        res = traced(frames, dev, BUILD, False, lean=True)
+        pulse = []
+        stop = watch_pulse_loop(pulse)
+        try:
+            res = traced(frames, dev, BUILD, False, lean=True)
+        finally:
+            stop()
         work = [dict(frame=label, **w) for label in ("keyframe", "inter")
                 for w in res[label]["band_search"]]
+        labels = ([w["frame"] for w in work] if len(work) == len(pulse)
+                  else ["call %d" % k for k in range(len(pulse))])
         if len(work) != len(calls):
             print("lean trace: %d band_search ranges for %d calls; "
                   "launches per call not read" % (len(work), len(calls)))
@@ -1174,7 +1307,8 @@ def phase_lean(torch, dev, ref):
                      w["wall_ms"]))
     finally:
         restore()
-    return nbytes
+    return dict(bytes=nbytes, launches=snap["launches"],
+                pulse_calls=list(zip(labels, pulse)))
 
 
 def phase_fields(torch, dev):
@@ -1200,6 +1334,41 @@ def phase_fields(torch, dev):
     print("fields: 1920x1080, r=16, %s fields equal between %s (%.4f s, "
           "with the upload and fetch) and cpu (%.4f s)"
           % (out["cpu"].shape, dev, out[str(dev) + "_s"], out["cpu_s"]))
+
+
+def phase_search_kernels(torch, dev, res, pulse_calls):
+    """Phase 2d: pulse_loop on the arguments of phase 3c's traced
+    band_search calls (`pulse_calls`, labelled), and sad_fields on the
+    1080p translation pair, as one tile and as the 2 x 2 tiles of phase
+    9's mesh, against their plain versions on the card."""
+    from daala_tpu_torch.codec.mc import OD_BUFFER_PADDING as pad
+    from daala_tpu_torch.ops.cuda import pulse_kernels as PK
+    from daala_tpu_torch.ops.cuda import sad_kernels as SK
+    from daala_tpu_torch.utils.profile import H, W, translation_clip
+    if not pulse_calls:
+        raise AssertionError("phase 3c captured no pulse_loop call")
+    for label, args in pulse_calls:
+        m, n = args[0].shape
+        record(torch, res, PK.KERNEL, "pulse_loop %s n=%d, %d rows"
+               % (label, n, m), lambda: PK.pulse_loop_cuda(*args),
+               lambda: PK.pulse_loop_plain(*args), pulse_work(args),
+               PK.KERNELS)
+    frames = translation_clip(nframes=2)
+    cur = frames[1][0]
+    ref = np.pad(frames[0][0], pad, mode="edge")
+    nvm, nhm = ((H + 31) // 32 * 32) >> 3, ((W + 31) // 32 * 32) >> 3
+    r = 16
+    for rows, cols in ((1, 1), (2, 2)):
+        for label, c, win, nv, nh, oy, ox in sad_tile_cases(
+                cur, ref, pad, (H, W), nvm, nhm, r, rows, cols):
+            ct = torch.from_numpy(c).to(dev)
+            wt = torch.from_numpy(win).to(dev)
+            record(torch, res, SK.NAME, "sad_fields r=%d %dx%d, %s"
+                   % (r, c.shape[1], c.shape[0], label),
+                   lambda: SK.sad_fields_cuda(ct, wt, r, nv, nh, oy, ox),
+                   lambda: SK.sad_fields_plain(ct, wt, r, nv, nh, oy, ox),
+                   sad_work(c.shape, r, nv, nh), SK.KERNELS)
+    torch.cuda.synchronize()
 
 
 def phase_dering_candidates(torch, dev):
@@ -2085,8 +2254,9 @@ def phase_bench(torch, dev, checked):
         probe = cfg["probe"][name]
         if not isinstance(probe, dict):
             raise AssertionError("bench probe %s: %s" % (name, probe))
-        need = ("lap_frame", "dct_frame") + (
-            ("obmc_leaf_cells",) if name == "device+sweep" else ())
+        need = ("lap_frame", "dct_frame", "sad_fields") + (
+            ("obmc_leaf_cells",) if name == "device+sweep" else ()) + (
+            ("pulse_loop",) if name != "analysis" else ())
         for k in need:
             if probe["dev"]["launches"].get(k, 0) <= 0:
                 raise AssertionError("bench probe %s: %s never launched"
@@ -2362,53 +2532,56 @@ def phase_cli(torch, dev, ref, host_frames):
     return total
 
 
-def kernel_line(kern, launches, decode_launches, batch_launches,
-                train_launches, shard_launches, python_path_launches,
-                bench_launches, cli_launches):
-    """The kernels line: each kernel's launches on the encoder's path, in
-    the decode, in the batched phases 7a-7b, in the training
-    statistics (phase 8a), on the sharded paths of phase 9
-    ("shard_launches": 9a, 9b, 9d and 9e, each tile a launch), on
-    the encoder's Python coefficient path (phase 10's Python run), in
-    the benchmark's probe runs (phase 11, "bench_launches") and in the
+def kernel_line(kern, launches, phases):
+    """The kernels line: each kernel's launches on its main path
+    ("launches": lap_frame and dct_frame in phase 3's encode, obmc_blend
+    in phase 2c, obmc_leaf_cells in phase 4's 1080p sweep encode,
+    sad_fields in phase 3's encode, pulse_loop in phase 3c's lean
+    encode) and, under each key of `phases`, its launches in that run:
+    phase 3's analysis-tier encode ("analysis_launches"), phase 3c's
+    lean encode ("lean_launches"), phase 4's 1080p sweep encode
+    ("sweep_launches"), phase 6's decode, the batched phases 7a-7b (both
+    schedules), the training statistics (phase 8a), the sharded paths of
+    phase 9 ("shard_launches": 9a, 9b, 9d and 9e, each tile a launch),
+    the encoder's Python coefficient path (phase 10's Python run), the
+    benchmark's probe runs (phase 11, "bench_launches") and the
     command-line tools' card runs of this process (phase 12,
-    "cli_launches"), and its
-    numbers summed
-    over phase 2's and 2b's timed
-    variants (each shape, size, direction or bit depth once):
-    per-call medians through the wrapper ("ms"), the kernels' device time
-    per call in the trace ("device_ms"), the plain version's, and the
-    bounds; "bound_by" names what bounds the larger part of bound_ms.
-    No single PyTorch call computes any of these functions, so
-    library_ms is null."""
+    "cli_launches"); and its numbers summed over phase 2's, 2b's and
+    2d's timed variants (each shape, size, direction, bit depth, call or
+    tile once): per-call medians through the wrapper ("ms"), the
+    kernels' device time per call in the trace ("device_ms"), the plain
+    version's, and the bounds; "bound_by" names what bounds the larger
+    part of bound_ms.  No single PyTorch call computes any of these
+    functions, so library_ms is null.  pulse_loop and sad_fields replace
+    functions that JAX computes in XLA, not in Pallas."""
     pallas = "daala_tpu/ops/pallas/"
     sources = {
         "lap_frame": ("lap_frame.cu", pallas + "lap_kernels.py:78"),
         "dct_frame": ("dct_frame.cu", pallas + "dct_kernels.py:83"),
         "obmc_blend": ("obmc_leaf.cu", pallas + "obmc_kernels.py:191"),
         "obmc_leaf_cells": ("obmc_leaf.cu", pallas + "obmc_kernels.py:208"),
+        "pulse_loop": ("pulse_search.cu", "daala_tpu/models/pvqsearch.py:318"
+                       " _pulse_search (XLA in JAX)"),
+        "sad_fields": ("sad_fields.cu", "daala_tpu/models/mefield.py:42"
+                       " _fullpel_fields (XLA in JAX)"),
     }
     rows = []
     for name, (src, rep) in sources.items():
         if name not in kern:
             continue
         k = kern[name]
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "daala_tpu_torch/csrc/" + src, "replaces": rep,
-            "launches": launches.get(name),
-            "decode_launches": decode_launches.get(name, 0),
-            "batch_launches": batch_launches.get(name, 0),
-            "train_launches": train_launches.get(name, 0),
-            "shard_launches": shard_launches.get(name, 0),
-            "python_path_launches": python_path_launches.get(name, 0),
-            "bench_launches": bench_launches.get(name, 0),
-            "cli_launches": cli_launches.get(name, 0),
+        row = {"name": name, "route": "cuda",
+               "source": "daala_tpu_torch/csrc/" + src, "replaces": rep,
+               "launches": launches.get(name)}
+        row.update({key: counts.get(name, 0)
+                    for key, counts in phases.items()})
+        row.update({
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "device_ms": k["device_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": max(k["bound_by"], key=k["bound_by"].get),
             "library_ms": None, "variants": k["variants"]})
+        rows.append(row)
     return {"kernels": rows}
 
 
@@ -2453,12 +2626,17 @@ def main(argv=None):
     ref = run("3", phase_encoder, torch, dev)
     launches.update({k: v for k, v in ref["launches"].items()
                      if k in ("lap_frame", "dct_frame")})
+    launches["sad_fields"] = ref["launches"].get("sad_fields", 0)
     checked = {"analysis": sum(map(len, ref["packets"]))}
-    checked["device"] = run("3c", phase_lean, torch, dev, ref)
+    lean = run("3c", phase_lean, torch, dev, ref)
+    checked["device"] = lean["bytes"]
+    launches["pulse_loop"] = lean["launches"].get("pulse_loop", 0)
+    run("2d", phase_search_kernels, torch, dev, kern,
+        lean.pop("pulse_calls"))
     run("3d", phase_fields, torch, dev)
     run("3e", phase_dering_candidates, torch, dev)
-    launches["obmc_leaf_cells"] = run(
-        "4", phase_sweep, torch, dev)["obmc_leaf_cells"]
+    sweep_launches = run("4", phase_sweep, torch, dev)
+    launches["obmc_leaf_cells"] = sweep_launches["obmc_leaf_cells"]
     run("4c", phase_lean_small, torch, dev)
     run("4c sweep", phase_lean_small, torch, dev, sweep=True)
     checked["device+sweep"] = run("4c sweep 1080p", phase_lean_sweep_1080p,
@@ -2483,10 +2661,13 @@ def main(argv=None):
                     or m.startswith(("jax.", "daala_tpu.")))
     if leaked:
         raise AssertionError("imported: %s" % leaked)
-    print(json.dumps(kernel_line(kern, launches, decode_launches,
-                                 batch_launches, train_launches,
-                                 shard_launches, python_path_launches,
-                                 bench_launches, cli_launches)))
+    print(json.dumps(kernel_line(kern, launches, dict(
+        analysis_launches=ref["launches"], lean_launches=lean["launches"],
+        sweep_launches=sweep_launches, decode_launches=decode_launches,
+        batch_launches=batch_launches, train_launches=train_launches,
+        shard_launches=shard_launches,
+        python_path_launches=python_path_launches,
+        bench_launches=bench_launches, cli_launches=cli_launches))))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

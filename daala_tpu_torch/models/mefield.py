@@ -18,11 +18,14 @@ complete SAD fields batch as one device pass:
        cell grid, and the windows tile the frame, so the global-search
        SAD is the sum of the per-vertex window SADs)
 
-Where JAX maps over the 1,089 offsets one at a time, the port takes one
-dy at a time with all 2R+1 dx at once (an `unfold` view of the
-reference rows).  The host consumes the fields in the native
-full_pel_search / global_mv_search as exact lookups, so its decisions
-equal the direct computation's (tests/test_torch_mefield.py).
+Where JAX maps over the 1,089 offsets one at a time, the port computes
+each tile's fields for one reference in one call of ops/cuda/
+sad_kernels.py sad_fields: on the card a kernel with a block per vertex
+window, on the CPU its plain version (one dy at a time with all 2R+1 dx
+at once, an `unfold` view of the reference rows).  The host consumes
+the fields in the native full_pel_search / global_mv_search as exact
+lookups, so its decisions equal the direct computation's
+(tests/test_torch_mefield.py).
 
 The fields are cut by vertex windows over the mesh of a placement hook
 (`device_put_fn`, parallel/sharding.py; without one, the whole field is
@@ -41,9 +44,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from daala_tpu_torch.device import resolve
+from daala_tpu_torch.ops.cuda.sad_kernels import sad_fields
 from daala_tpu_torch.parallel.sharding import stage_hook
 from daala_tpu_torch.utils import devstats
 
@@ -51,49 +54,6 @@ from daala_tpu_torch.utils import devstats
 # OD_LOG_MVBSIZE_MIN + OD_LOG_MVB_DELTA0).
 _CELL = 8
 _WIN_CELLS = 8  # 64-px window = 8 cells
-
-
-def _cell_sads(cur_vis, ref_win, r):
-    """(noff, ch, cw) int32 8x8-cell SADs of cur_vis ((vh, vw) uint8)
-    against ref_win ((vh + 2r, vw + 2r) uint8 starting at (-r, -r)) at
-    every offset, row-major (dy, dx), dy, dx in [-r, r].
-
-    The differences are int16 (a cell SAD is at most 64*255 < 2^15) and
-    the cell sums exact integers."""
-    vh, vw = cur_vis.shape
-    ch = -(-vh // _CELL)
-    cw = -(-vw // _CELL)
-    # Pad once to cell-aligned int16 buffers; the visibility mask zeroes
-    # the partial-cell overhang.
-    py, px = ch * _CELL - vh, cw * _CELL - vw
-    cur16 = F.pad(cur_vis.to(torch.int16), (0, px, 0, py))
-    ref16 = F.pad(ref_win.to(torch.int16), (0, px, 0, py))
-    mask = F.pad(torch.ones((vh, vw), dtype=torch.int16,
-                            device=cur_vis.device), (0, px, 0, py))
-    noffd = 2 * r + 1
-    hh, ww = ch * _CELL, cw * _CELL
-    cells = torch.empty((noffd, noffd, ch, cw), dtype=torch.int32,
-                        device=cur_vis.device)
-    for dy in range(noffd):
-        # (hh, noffd, ww): every dx of this dy at once.
-        ref = ref16[dy:dy + hh].unfold(1, ww, 1)
-        d = (cur16[:, None, :] - ref).abs_().mul_(mask[:, None, :])
-        cells[dy] = d.reshape(ch, _CELL, noffd, cw, _CELL) \
-            .sum((1, 4), dtype=torch.int32).transpose(0, 1)
-    return cells.view(noffd * noffd, ch, cw)
-
-
-def _window_sums(cells, nv, nh, y0, x0):
-    """(noff, nv, nh) sums of the windows of 8x8 cells: `cells` placed at
-    (y0, x0) of a zero (nv * 8, nh * 8) cell grid, whose (i, j) block is
-    vertex (i, j)'s window."""
-    ch, cw = cells.shape[1:]
-    hp, wp = nv * _WIN_CELLS, nh * _WIN_CELLS
-    cp = torch.zeros((cells.shape[0], hp, wp), dtype=torch.int32,
-                     device=cells.device)
-    cp[:, y0:y0 + ch, x0:x0 + cw] = cells
-    return cp.view(-1, nv, _WIN_CELLS, nh, _WIN_CELLS) \
-        .sum((2, 4), dtype=torch.int32)
 
 
 def _margin(nv, ch):
@@ -140,6 +100,17 @@ def _window_tiles(vis, nvb, nhb, sharding):
     return out
 
 
+def tile_window(ref_padded, pad, r, box):
+    """The reference window that sad_fields takes for a tile whose current
+    pixels are `box` (py0, py1, px0, px1) of the plane: the padded
+    reference plane (padding `pad` >= r) from r above and left of the
+    box to r below and right of it, as contiguous uint8."""
+    py0, py1, px0, px1 = box
+    return np.ascontiguousarray(ref_padded[pad - r + py0:pad + r + py1,
+                                           pad - r + px0:pad + r + px1],
+                                np.uint8)
+
+
 def fullpel_sad_fields(cur, refs_padded, pad, vis, nvmvbs, nhmvbs, r=16,
                        *, device, device_put_fn=None):
     """Compute the full-pel SAD fields for every search reference on
@@ -175,17 +146,14 @@ def fullpel_sad_fields(cur, refs_padded, pad, vis, nvmvbs, nhmvbs, r=16,
                          cols.stop - cols.start),
                         dtype=torch.int32, device=dev)
                 else:
-                    py0, py1, px0, px1 = box
-                    win_t = devstats.upload(np.ascontiguousarray(
-                        rp[pad - r + py0:pad + r + py1,
-                           pad - r + px0:pad + r + px1], np.uint8), dev)
+                    win_t = devstats.upload(tile_window(rp, pad, r, box),
+                                            dev)
                     devstats.dispatch()
                     with torch.profiler.record_function(
                             "fullpel_sad_fields"):
-                        fields = _window_sums(
-                            _cell_sads(cur_t, win_t, r),
-                            rows.stop - rows.start, cols.stop - cols.start,
-                            oy, ox)
+                        fields = sad_fields(
+                            cur_t, win_t, r, rows.stop - rows.start,
+                            cols.stop - cols.start, oy, ox)
                 parts.append(((slice(None), rows, cols), fields))
             pending.append(parts)
         devstats.prefetch(*[f for parts in pending for _, f in parts])

@@ -35,7 +35,9 @@ Differences from the JAX module, none of which changes a result:
   stacked (C*m, n) batch, and the sequential `better` selection over
   them is evaluated in closed form (`_select`), so the number of
   launches per call depends on neither the row count nor the candidate
-  count (only the pulse loop's trip count, which the data sets);
+  count (on the CPU, the pulse loop's trip count, which the data sets,
+  adds to them; on the card the loop is one kernel,
+  ops/cuda/pulse_kernels.py);
 - no row chunking and no padding ladder: one call per band length and
   frame type, whatever the row count;
 - the band gather masks out-of-range offsets explicitly where JAX used
@@ -53,6 +55,8 @@ import torch
 from daala_tpu_torch.models.analysis import wrap32 as _wrap32
 from daala_tpu_torch.ops import partition as part
 from daala_tpu_torch.ops import pvq as P
+from daala_tpu_torch.ops.cuda.pulse_kernels import (  # noqa: F401
+    _fma32, _rsqrt, pulse_loop)
 from daala_tpu_torch.parallel.sharding import stage_hook
 from daala_tpu_torch.utils import devstats
 
@@ -336,55 +340,6 @@ def _fconst(v, like):
 # Pulse search (reference: pvq_search_rdo_double, src/pvq_encoder.c:93-227)
 # ---------------------------------------------------------------------------
 
-_RSQRT16 = (1.000000, 0.707107, 0.577350, 0.500000, 0.447214, 0.408248,
-            0.377964, 0.353553, 0.333333, 0.316228, 0.301511, 0.288675,
-            0.277350, 0.267261, 0.258199, 0.250000)
-
-
-@functools.lru_cache(maxsize=None)
-def _rsqrt16(device):
-    return torch.tensor(_RSQRT16, dtype=torch.float32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def _rsqrt_seed(device):
-    """The 12-bit estimate of x86's rsqrtps as int32 float bit patterns:
-    entry p * 1024 + i covers [2^p (1 + i/1024), 2^p (1 + (i+1)/1024))
-    and holds round(2^13 / sqrt(its midpoint)) / 2^13 (every entry in
-    [0.5, 1), exponent 126)."""
-    mid = (1.0 + (np.arange(1024) + 0.5) / 1024.0)
-    mid = np.concatenate([mid, 2.0 * mid])
-    est = (np.rint(8192.0 / np.sqrt(mid)) / 8192.0).astype(np.float32)
-    return torch.from_numpy(est.view(np.int32)).to(device)
-
-
-def _fma32(a, b, c):
-    """The fused multiply-add a * b + c of float32 tensors (c may be a
-    float): the product is exact in float64, so the result is rounded
-    once to float32 wherever the float64 sum is exact, and otherwise
-    differs from one rounding only where that sum lands on a float32
-    midpoint (about one case in 2^29)."""
-    return (a.double() * b.double() + c).float()
-
-
-def _rsqrt(x):
-    """1 / sqrt(x) of a float32 tensor of positive normal values or
-    zeros, as XLA:CPU computes JAX's `1.0 / jnp.sqrt(x)`: XLA rewrites
-    it into rsqrt, which it evaluates as the 12-bit rsqrtps estimate
-    (`_rsqrt_seed`, scaled by the exponent) refined by two Newton steps,
-    u = fma(x y, y, -1), y = fma(-y / 2, u, y); zero gives inf.  About
-    one value in eight differs from the correctly rounded one."""
-    b = x.view(torch.int32)
-    e = (b >> 23) - 127
-    par = e & 1
-    seed = _rsqrt_seed(x.device)[(par << 10) | ((b >> 13) & 1023)]
-    y = (seed - (((e - par) >> 1) << 23)).view(torch.float32)
-    for _ in range(2):
-        u = _fma32(x * y, y, -1.0)
-        y = _fma32(y * -0.5, u, y)
-    return torch.where(x == 0, math.inf, y)
-
-
 def _pulse_search(xc, k, g2, lam, n, iters, lane_ok=None):
     """Vectorized greedy RDO pulse allocation.
 
@@ -395,10 +350,12 @@ def _pulse_search(xc, k, g2, lam, n, iters, lane_ok=None):
     signed (m, n) int32, cos_dist (m,), ok (m,): False when `iters`
     steps were not enough).  Fresh search per call.
 
-    The trip count is read once per call (one host sync): the largest
-    number of pulses any row still needs after the floor-projection
-    init, capped at `iters`.  Rows that finish early are masked, as in
-    the JAX while_loop."""
+    The greedy loop after the floor-projection init is ops/cuda/
+    pulse_kernels.py pulse_loop: on the card a kernel that runs each
+    row's own trip count (the pulses it still needs, capped at
+    `iters`), with no host sync; on the CPU the plain loop, which reads
+    the largest trip count once per call and masks the rows that finish
+    early, as in the JAX while_loop."""
     dev = xc.device
     if lane_ok is None:
         lane_ok = torch.ones(xc.shape, dtype=torch.bool, device=dev)
@@ -428,29 +385,8 @@ def _pulse_search(xc, k, g2, lam, n, iters, lane_ok=None):
     jidx = torch.arange(n, dtype=torch.float32, device=dev)
     rate_pen = (lamr[:, None] * jidx[None, :]
                 * (delta_rate[:, None] + jidx[None, :] * accel_rate[:, None]))
-    rsq = _rsqrt16(dev)
-    rows = torch.arange(xc.shape[0], device=dev)
-    need = int(torch.ceil((kf - i).max()).item()) if xc.shape[0] else 0
-    for _ in range(min(iters, max(need, 0))):
-        active = i < kf
-        phase2 = i >= (kf - rdo_pulses.float())
-        txy = xy[:, None] + x
-        tyy = yy[:, None] + 2.0 * yp + 1.0
-        score1 = (txy * txy) / tyy
-        small = tyy <= 16.0
-        tidx = tyy.clamp(1.0, 16.0).long() - 1
-        tyy_r = torch.where(small, rsq[tidx], _rsqrt(tyy.clamp_min(1.0)))
-        score2 = _fma32(2.0 * txy * norm_1[:, None], tyy_r, -rate_pen)
-        score = torch.where(phase2[:, None], score2, score1)
-        score = torch.where(lane_ok, score, -math.inf)
-        pos = score.argmax(-1)
-        xadd = x.gather(1, pos[:, None])[:, 0]
-        yold = yp.gather(1, pos[:, None])[:, 0]
-        one = torch.where(active, 1.0, 0.0)
-        yp = yp.index_put((rows, pos), one, accumulate=True)
-        xy = xy + torch.where(active, xadd, 0.0)
-        yy = yy + torch.where(active, 2.0 * yold + 1.0, 0.0)
-        i = i + one
+    yp, xy, yy, i = pulse_loop(x, yp, xy, yy, i, kf, rdo_pulses, norm_1,
+                               rate_pen, lane_ok, iters)
     ok = i >= kf
     cos_dist = xy * _rsqrt(xx * yy)
     cos_dist = torch.where(k == 0, 0.0, cos_dist)

@@ -3,8 +3,10 @@ plain versions at the encoder's 1080p shapes, launch-error reporting,
 the device OBMC predictor against the host's, the encoder on the card
 against the host encoder and (in sweep mode) against itself on the
 CPU, the lean tier's PVQ band search and SAD fields on the card
-against the CPU, the lean tier's Python coefficient path on the card
-against its native pass, the decoder's device back end (dering and
+against the CPU (and their kernels, csrc/pulse_search.cu and
+csrc/sad_fields.cu, against their plain versions on the card at
+1080p), the lean tier's Python coefficient path on the card against
+its native pass, the decoder's device back end (dering and
 synthesis) on the card against the CPU and the host decoder, the parallel
 encodes (parallel/mesh.py) on the card against the CPU and serial
 encodes, the mesh's sp axis (parallel/sharding.py: the lap kernel from
@@ -528,6 +530,59 @@ def test_sad_fields_on_card_match_cpu(card):
     want = MF.fullpel_sad_fields(*args, device="cpu")
     for g, wnt in zip(got, want):
         np.testing.assert_array_equal(g, wnt)
+
+
+@pytest.mark.parametrize("is_keyframe", [False, True])
+def test_pulse_loop_kernel_matches_plain(card, is_keyframe):
+    """csrc/pulse_search.cu against pulse_loop_plain on the card, bit for
+    bit, on the loop's arguments of band_search over
+    test_band_search_on_card_matches_cpu's rows at a 1080p frame's row
+    counts (every band length of the codec, and 512)."""
+    from chip_smoke import watch_pulse_loop
+    from daala_tpu_torch.ops.cuda import pulse_kernels as PK
+    calls = []
+    restore = watch_pulse_loop(calls)
+    try:
+        for n, m in [(8, 20000), (15, 30000), (32, 8000), (128, 2000),
+                     (512, 300)]:
+            PS.band_search(**_search_rows(card, n, m, is_keyframe, n + m))
+    finally:
+        restore()
+    assert len(calls) == 5
+    for args in calls:
+        devstats.reset()
+        got = PK.pulse_loop(*args)
+        assert devstats.snapshot()["launches"] == {PK.KERNEL: 1}
+        for g, w in zip(got, PK.pulse_loop_plain(*args)):
+            assert g.device.type == "cuda"
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    torch.cuda.synchronize()
+
+
+def test_sad_fields_kernel_matches_plain(card):
+    """csrc/sad_fields.cu against sad_fields_plain on the card on the
+    1080p translation pair at r = 16, as one tile and as the 2 x 2 and
+    3 x 2 tiles of a mesh, and at r = 4 and r = 7 on one tile: equal
+    fields, one launch a tile."""
+    from chip_smoke import sad_tile_cases
+    from daala_tpu_torch.ops.cuda import sad_kernels as SK
+    from daala_tpu_torch.utils.profile import H, W, translation_clip
+    pad = MC.OD_BUFFER_PADDING
+    frames = translation_clip(nframes=2)
+    cur, ref = frames[1][0], np.pad(frames[0][0], pad, mode="edge")
+    nvm, nhm = ((H + 31) // 32 * 32) >> 3, ((W + 31) // 32 * 32) >> 3
+    for r, rows, cols in ((16, 1, 1), (16, 2, 2), (16, 3, 2), (4, 1, 1),
+                          (7, 1, 1)):
+        for _, c, win, nv, nh, oy, ox in sad_tile_cases(
+                cur, ref, pad, (H, W), nvm, nhm, r, rows, cols):
+            ct = torch.from_numpy(c).to(card)
+            wt = torch.from_numpy(win).to(card)
+            devstats.reset()
+            got = SK.sad_fields(ct, wt, r, nv, nh, oy, ox)
+            assert devstats.snapshot()["launches"] == {SK.NAME: 1}
+            assert torch.equal(got, SK.sad_fields_plain(ct, wt, r, nv, nh,
+                                                        oy, ox))
+    torch.cuda.synchronize()
 
 
 def _dering_luma(rng):

@@ -3,15 +3,19 @@ against the JAX package and the direct window SADs, and the encoder
 that reads them.
 
 Every value compared is an integer, so the tolerance is zero: the fields
-equal JAX's and the direct SADs of test_mefield.py; the port's Encoder
+equal JAX's and the direct SADs of test_mefield.py, and the plain version
+of the fields' kernel (ops/cuda/sad_kernels.py) equals JAX's
+_fullpel_fields; the port's Encoder
 (device "cpu", its analysis tier on, so the fields are on) gives packets
 byte-identical to daala_tpu's host encoder, which has no fields; and a
 perturbed field changes the packets, so the native motion search really
 reads them.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from daala_tpu import native
 from daala_tpu.codec import headers
@@ -20,6 +24,7 @@ from daala_tpu.codec.encoder import Encoder as HostEncoder
 from daala_tpu.models import mefield as JMF
 from daala_tpu_torch.codec.encoder import Encoder
 from daala_tpu_torch.models import mefield as MF
+from daala_tpu_torch.ops.cuda import sad_kernels as SK
 from daala_tpu_torch.utils import devstats
 from test_mefield import _win_sad_ref
 import torch_threads
@@ -53,6 +58,47 @@ def test_fields_match_jax(w, h, vh, vw, r):
     for g, wnt in zip(got, want):
         assert g.dtype == np.int32 and g.shape == wnt.shape
         np.testing.assert_array_equal(g, wnt)
+
+
+@pytest.mark.parametrize("w,h,vh,vw,r", CASES)
+def test_sad_fields_plain_matches_jax(w, h, vh, vw, r):
+    """The kernel's plain version (ops/cuda/sad_kernels.py) on the
+    visible current plane and its reference window, its cells at the
+    margins fullpel_sad_fields gives them, against JAX's _fullpel_fields
+    on the same planes."""
+    cur, refs = _planes(w, h, 2 * w + r, 1)
+    cur_vis = np.ascontiguousarray(cur[:vh, :vw])
+    win = np.ascontiguousarray(refs[0][PAD - r:PAD + vh + r,
+                                       PAD - r:PAD + vw + r])
+    nvb, nhb = h // 64 + 1, w // 64 + 1
+    want = np.asarray(JMF._fullpel_fields(jnp.asarray(cur_vis),
+                                          jnp.asarray(win), r=r, nvb=nvb,
+                                          nhb=nhb))
+    got = SK.sad_fields_plain(torch.from_numpy(cur_vis),
+                              torch.from_numpy(win), r, nvb, nhb,
+                              MF._margin(nvb, -(-vh // 8)),
+                              MF._margin(nhb, -(-vw // 8)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sad_fields_wrapper_checks_and_devices():
+    """sad_fields runs the plain version on the CPU; it raises on a
+    device other than a card or the CPU, on a reference window of the
+    wrong size, and on cells that leave the windows' grid."""
+    cur, refs = _planes(128, 64, 9, 1)
+    r = 4
+    c = torch.from_numpy(np.ascontiguousarray(cur[:60, :100]))
+    win = torch.from_numpy(np.ascontiguousarray(
+        refs[0][PAD - r:PAD + 60 + r, PAD - r:PAD + 100 + r]))
+    assert torch.equal(SK.sad_fields(c, win, r, 2, 3, 4, 4),
+                       SK.sad_fields_plain(c, win, r, 2, 3, 4, 4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        SK.sad_fields(c.to("meta"), win.to("meta"), r, 2, 3, 4, 4)
+    with pytest.raises(ValueError, match="reference window"):
+        SK.sad_fields(c, win[1:], r, 2, 3, 4, 4)
+    with pytest.raises(ValueError, match="leave"):
+        SK.sad_fields(c, win, r, 2, 3, 4, 12)
 
 
 def test_fields_match_direct():

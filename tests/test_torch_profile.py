@@ -69,17 +69,19 @@ def test_hand_kernels_name_every_kernel():
     import os
     from chip_smoke import global_names
     from daala_tpu_torch.ops.cuda import (dct_kernels, lap_kernels,
-                                          obmc_kernels)
+                                          obmc_kernels, pulse_kernels,
+                                          sad_kernels)
     from daala_tpu_torch.utils.profile import HAND_KERNELS
     csrc = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "daala_tpu_torch", "csrc")
     names = set()
     for path in glob.glob(os.path.join(csrc, "*.cu")):
         names |= set(global_names(path))
-    assert len(names) >= 4
+    assert len(names) >= 6
     assert all(any(k in n for k in HAND_KERNELS) for n in names), names
     listed = (dct_kernels.KERNELS + lap_kernels.KERNELS
-              + obmc_kernels.KERNELS)
+              + obmc_kernels.KERNELS + pulse_kernels.KERNELS
+              + sad_kernels.KERNELS)
     assert set(listed) == names
 
 
