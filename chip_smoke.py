@@ -8,9 +8,10 @@ CUDA toolkit (nvcc) and g++:
     python3 chip_smoke.py --ab PARENT   # phases 1-2 only, parent vs this
 
 With --ab, PARENT is another checkout (at least its daala_tpu_torch/
-csrc/); phase 2 runs with its lap_frame.cu and dct_frame.cu and with
-this tree's, in turns (parent, change, change, parent) in one process
-on one card, and prints each case's device time per turn.
+csrc/); phase 2, and phase 2d's sad_fields cases, run with its
+lap_frame.cu, dct_frame.cu and sad_fields.cu (where it has one) and
+with this tree's, in turns (parent, change, change, parent) in one
+process on one card, and print each case's device time per turn.
 
 Phases, each printing its lines; any failure raises and exits nonzero:
 
@@ -19,7 +20,9 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    host engine and the five CUDA sources (lap_frame, dct_frame,
    obmc_leaf, pulse_search, sad_fields; into build/, first use only,
    all nvcc runs at once) and prints each build's seconds and ptxas's
-   registers, stack and spills of every kernel instantiation.
+   registers, stack and spills of every kernel instantiation, and, as
+   information, the card's vabsdiff4 issue rate (a probe kernel of
+   independent __vsadu4 chains): what bounds sad_fields in practice.
 2. Kernel vs plain PyTorch version, on the card, at the 1080p encoder's
    shapes: lap_frame forward and inverse on a (1088, 1920) luma plane
    (superblock 64) and a (544, 960) chroma plane (superblock 32);
@@ -50,12 +53,13 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    the wrappers refuse.
 2d. (Run after phase 3c, whose inputs it takes.)  The PVQ search's
    kernels against their plain versions on the card, bit for bit, timed
-   as in phase 2: pulse_loop (csrc/pulse_search.cu, the greedy loop of
-   models/pvqsearch.py _pulse_search) on the arguments of every
-   band_search call of phase 3c's traced keyframe and first inter frame
-   (each band length), and sad_fields (csrc/sad_fields.cu, the SAD
-   fields of models/mefield.py) on the 1080p translation pair at
-   r = 16, as one tile and as the 2 x 2 tiles of phase 9's mesh.
+   as in phase 2: pulse_search (csrc/pulse_search.cu, the whole of
+   models/pvqsearch.py _pulse_search) against the whole plain search on
+   the arguments of every band_search call of phase 3c's traced keyframe
+   and first inter frame (each band length; each call's longest trip
+   count printed beside its time), and sad_fields (csrc/sad_fields.cu,
+   the SAD fields of models/mefield.py) on the 1080p translation pair
+   at r = 16, as one tile and as the 2 x 2 tiles of phase 9's mesh.
 2c. Device OBMC prediction: models/obmc.py predict_frame_plane_device on
    the card against the host predictor (the port's numpy copy of it,
    codec/mc.py mc_predict_frame) on a random 1080p mesh with every subdivision level, all three
@@ -79,7 +83,7 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    search, byte-identical to daala_tpu's host encoder) and its bytes
    within -10% / +5% of phase 3's (on this clip the lean search, like
    JAX's, codes the inter frames about 6% smaller than the host
-   search); lap_frame, dct_frame, pulse_loop and sad_fields launched;
+   search); lap_frame, dct_frame, pulse_search and sad_fields launched;
    every band_search call ran on the card; under half of phase 3's
    device->host bytes.  Prints
    its devstats, Mpix/s, the search_frame and SAD-field spans, the rows
@@ -198,7 +202,7 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    clips, two runs each) and `python -m
    daala_tpu_torch.utils.bench_scaling` at its defaults.  Every probe
    is a measurement, not an error, with lap_frame, dct_frame and
-   sad_fields launched in it (pulse_loop in the lean tier's two,
+   sad_fields launched in it (pulse_search in the lean tier's two,
    obmc_leaf_cells in device+sweep's); the headline
    is above 0 with both clips; the translation clip's bytes equal the
    checked encode of the chosen configuration (phase 3, 3c or 4c's
@@ -226,7 +230,7 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    --seek decode is the full decode from frame 6 on.  Prints each
    mode's walls.
 5. A line of JSON with each kernel's route, source, launches (lap_frame,
-   dct_frame and sad_fields from phase 3, pulse_loop from phase 3c,
+   dct_frame and sad_fields from phase 3, pulse_search from phase 3c,
    obmc_blend from phase 2c, obmc_leaf_cells from phase 4b) and, beside
    them, its launches in phase 3 ("analysis_launches"), 3c
    ("lean_launches"), 4b ("sweep_launches"), in
@@ -246,6 +250,7 @@ PaddedImage).
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -626,6 +631,64 @@ def phase_environment(torch):
                 for x, y in pairs)))
     print("plan: (nx x ny: threads, leaves per block, copy bytes, shared "
           "bytes, blocks per SM, rows per thread)")
+    vabsdiff4_rate(torch)
+
+
+# One launch of 132 x 16 blocks of 256 threads, each thread 16
+# independent chains of `iters` __vsadu4 (a vabsdiff4 with its sum, the
+# SAD fields' operation).
+_RATE_PROBE = r"""
+#include <stdint.h>
+__global__ void vsad_chains(uint32_t *out, int iters) {
+  uint32_t x[16];
+  for (int k = 0; k < 16; k++) x[k] = 2654435761u * (threadIdx.x + 7 * k + 1);
+  for (int it = 0; it < iters; it++)
+#pragma unroll
+    for (int k = 0; k < 16; k++) x[k] = __vsadu4(x[k], 0x9e3779b9u * k);
+  uint32_t s = 0;
+  for (int k = 0; k < 16; k++) s += x[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int vsad_probe(void *out, int blocks, int iters) {
+  vsad_chains<<<blocks, 256>>>((uint32_t *)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def vabsdiff4_rate(torch):
+    """The card's vabsdiff4 issue rate, lanes a clock per SM at the
+    maximum SM clock (median of 3 launches, CUDA events): what bounds
+    sad_fields in practice, against the int32 rate of `bound`.
+    Information only."""
+    import ctypes
+    from daala_tpu_torch.ops.cuda import _build
+    os.makedirs(BUILD, exist_ok=True)
+    src = os.path.join(BUILD, "vsad_probe.cu")
+    so = os.path.join(BUILD, "vsad_probe.so")
+    with open(src, "w") as f:
+        f.write(_RATE_PROBE)
+    subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS + ["-o", so, src],
+                   check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(so).vsad_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    blocks, iters = 132 * 16, 4000
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    ms = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _build.check(fn(out.data_ptr(), blocks, iters), "vsad_probe")
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    t = statistics.median(ms[1:])
+    lanes = blocks * 256 * iters * 16 / (t * 1e-3) / 132 / (
+        RATES["ops_per_s"] / SM_INT32_LANES)
+    print("rate: vabsdiff4 %.2f lanes a clock per SM (%.4f ms for %d; the "
+          "bound counts 64 int32 lanes) [information only]"
+          % (lanes, t, blocks * 256 * iters * 16))
 
 
 CASES = []  # (label, kernel ms, device ms, plain ms, bound ms) of record
@@ -645,7 +708,10 @@ def output_err(torch, got, want):
         if g.numel() == 0:
             continue
         if g.is_floating_point():
-            err = max(err, float((g.double() - w.double()).abs().max()))
+            # NaN against NaN is no error; against a number, an infinite one.
+            d = (g.double() - w.double()).abs()
+            d = torch.where(g.isnan() & w.isnan(), 0.0, d)
+            err = max(err, float(torch.nan_to_num(d, nan=math.inf).max()))
             same &= torch.equal(g.view(torch.int32), w.view(torch.int32))
         else:
             d = int((bits(g).long() - bits(w).long()).abs().max().item())
@@ -748,13 +814,18 @@ def global_names(path):
 
 
 def build_other(root, tag):
-    """Build lap_frame.cu and dct_frame.cu of another checkout at `root`
-    (the same nvcc flags, in parallel) and load them; returns {source:
-    (library, its kernels' names)}."""
+    """Build lap_frame.cu, dct_frame.cu and, where the checkout at `root`
+    has it, sad_fields.cu of that checkout (the same nvcc flags, in
+    parallel) and load them; returns {source: (library, its kernels'
+    names)}."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
-    from daala_tpu_torch.ops.cuda import _build, dct_kernels, lap_kernels
+    from daala_tpu_torch.ops.cuda import (_build, dct_kernels, lap_kernels,
+                                          sad_kernels)
     csrc = os.path.join(os.path.abspath(root), "daala_tpu_torch", "csrc")
+    mods = [lap_kernels, dct_kernels] + (
+        [sad_kernels] if os.path.exists(os.path.join(
+            csrc, sad_kernels.NAME + ".cu")) else [])
     os.makedirs(BUILD, exist_ok=True)
 
     def one(mod):
@@ -791,15 +862,19 @@ def build_other(root, tag):
                 return fn(src, dst, h, w, sb_x, sb_y, forward, stream)
         return mod.NAME, (Untiled(), global_names(src))
 
-    with ThreadPoolExecutor(2) as ex:
-        return dict(ex.map(one, (lap_kernels, dct_kernels)))
+    with ThreadPoolExecutor(len(mods)) as ex:
+        return dict(ex.map(one, mods))
 
 
 def phase_ab(torch, dev, parent):
-    """Phase 2 with the lap_frame.cu and dct_frame.cu of the checkout at
-    `parent` and of this tree, in turns (parent, change, change, parent)
-    in one process on one card, every call with a cold L2; prints each
-    case's device time per turn and, as a line of JSON, all of them."""
+    """Phase 2, and phase 2d's sad_fields cases, with the lap_frame.cu,
+    dct_frame.cu and sad_fields.cu of the checkout at `parent` and of
+    this tree, in turns (parent, change, change, parent) in one process
+    on one card, every call with a cold L2; prints each case's device
+    time per turn and, as a line of JSON, all of them.  (pulse_search.cu
+    took another interface before it held the whole search, so it has
+    no turn here.)"""
+    from daala_tpu_torch.ops.cuda import sad_kernels as SK
     global TIME_PLAIN
     from daala_tpu_torch.ops.cuda import _build
     other = build_other(parent, "parent")
@@ -814,8 +889,10 @@ def phase_ab(torch, dev, parent):
             _build._LIBS[name] = lib
         del CASES[:]
         print("ab: turn %d, %s" % (len(turns) + 1, tag))
-        phase_kernels(torch, dev, {},
-                      {name: kn for name, (_, kn) in libs.items()})
+        names = {name: kn for name, (_, kn) in libs.items()}
+        phase_kernels(torch, dev, {}, names)
+        if SK.NAME in names:
+            sad_kernel_cases(torch, dev, {}, names[SK.NAME])
         turns.append((tag, list(CASES)))
     for name, (lib, _) in mine.items():
         _build._LIBS[name] = lib
@@ -1137,48 +1214,67 @@ def _watch_band_search(calls):
     return restore
 
 
-def watch_pulse_loop(calls):
-    """Replace pvqsearch.pulse_loop by a wrapper that appends its
-    arguments to `calls` (the tensors themselves: _pulse_search makes
+def watch_pulse_search(calls):
+    """Replace pvqsearch.pulse_search by a wrapper that appends its
+    arguments to `calls` (the tensors themselves: band_search makes
     them for the call and nothing writes them after it); returns the
     function that restores it."""
     from daala_tpu_torch.models import pvqsearch as PS
-    real = PS.pulse_loop
+    real = PS.pulse_search
 
     def watched(*args):
         calls.append(args)
         return real(*args)
-    PS.pulse_loop = watched
+    PS.pulse_search = watched
 
     def restore():
-        PS.pulse_loop = real
+        PS.pulse_search = real
     return restore
 
 
 def pulse_work(args):
-    """(bytes, ops, "flops_per_s") of pulse_loop on its arguments `args`.
+    """(bytes, ops, "flops_per_s", longest trip count) of pulse_search on
+    its arguments `args` (xc, k, g2, lam, lane_ok, iters).
 
-    Bytes: x, yp, rate_pen (float32) and lane_ok (bool) of every lane
-    read once, the 6 float32 row values and the two tables read once,
-    yp and the 3 row sums written once.
+    Bytes: xc (float32) and lane_ok (bool) of every lane and k and g2 of
+    every row read once, the two tables read once, y (int32) of every
+    lane and cos_dist and ok of every row written once.
 
-    Operations: float32 operations of the steps that these rows take
-    (each row min(iters, ceil(kf - i)) of them, the first ones scoring
-    the correlation, those from i >= kf - rdo_pulses on the rate
-    penalised score): per lane and step 7 (txy, tyy's three, the
-    square, the division, the comparison of the argmax) or 11 (txy,
-    tyy's three, 2 txy norm_1's two, the fused multiply-add in float64
-    counted as 4 float32 operations, the comparison); the Newton steps
-    of lanes past the table are not counted, so this is a least count;
-    per row and step 5 for the update."""
-    x, _, _, _, i, kf, rdo, _, _, _, iters = args
-    m, n = x.shape
-    nbytes = m * n * 13 + m * 24 + 16 * 4 + 2048 * 4 + m * n * 4 + m * 12
+    Operations: float32 operations from the code, a fused multiply-add
+    counted as 2.  The prologue: per lane 17 (the magnitude; x.x, |x|_1,
+    x.y, y.y and the pulse count; the init's product, quotient, floor
+    and clamp; the rate penalty's four), per row 17 (norm_1's sum and
+    rsqrt, the estimate and two Newton steps of 6, lamr's sum and
+    quotient; the chunk sums of long rows not counted).  The steps that
+    these rows take (each row min(iters, ceil(kf - i)) of them after
+    the init, the first ones scoring the correlation, those from i >= kf
+    - rdo_pulses on the rate penalised score): per lane and step 7
+    (txy, tyy's three, the square, the division, the comparison of the
+    argmax) or 11 (txy, tyy's three, 2 txy norm_1's two, the fused
+    multiply-add in float64 counted as 4 float32 operations, the
+    comparison); the Newton steps of lanes past the table are not
+    counted, so this is a least count; per row and step 5 for the
+    update.  The epilogue: per lane the sign, per row cos_dist's
+    product and rsqrt (14).  The trip counts come from the plain
+    version's loop arguments on these inputs."""
+    from daala_tpu_torch.ops.cuda import pulse_kernels as PK
+    xc, k, iters = args[0], args[1], args[5]
+    m, n = xc.shape
+    nbytes = m * n * 5 + m * 8 + 16 * 4 + 2048 * 4 + m * n * 4 + m * 5
+    loop = []
+    real = PK.pulse_loop_plain
+    PK.pulse_loop_plain = lambda *a: loop.append(a) or real(*a)
+    try:
+        PK.pulse_search_plain(*args)
+    finally:
+        PK.pulse_loop_plain = real
+    _, _, _, _, i, kf, rdo = loop[0][:7]
     kf, i, rdo = (t.double().cpu().numpy() for t in (kf, i, rdo))
     trips = np.minimum(iters, np.maximum(0.0, np.ceil(kf - i)))
     p2 = np.maximum(0.0, trips - np.maximum(0.0, np.ceil(kf - rdo - i)))
-    ops = n * (7 * (trips - p2).sum() + 11 * p2.sum()) + 5 * trips.sum()
-    return nbytes, int(ops), "flops_per_s"
+    ops = (n * (7 * (trips - p2).sum() + 11 * p2.sum()) + 5 * trips.sum()
+           + m * (18 * n + 31))
+    return nbytes, int(ops), "flops_per_s", int(trips.max(initial=0))
 
 
 def sad_work(shape, r, nv, nh):
@@ -1224,7 +1320,7 @@ def lean_encoder(info, device, **kw):
 
 def phase_lean(torch, dev, ref):
     """Phase 3c against phase 3's results `ref`; returns its bytes, its
-    launches and, labelled by frame, the arguments of every pulse_loop
+    launches and, labelled by frame, the arguments of every pulse_search
     call of its trace's keyframe and inter frame (one per band_search
     call)."""
     from daala_tpu_torch.codec import headers
@@ -1273,7 +1369,8 @@ def phase_lean(torch, dev, ref):
         if abs(psnr - ref["psnr"]) >= 0.3:
             raise AssertionError("lean PSNR %.4f not within 0.3 dB of %.4f"
                                  % (psnr, ref["psnr"]))
-        for name in ("lap_frame", "dct_frame", "pulse_loop", "sad_fields"):
+        for name in ("lap_frame", "dct_frame", "pulse_search",
+                     "sad_fields"):
             if snap["launches"].get(name, 0) <= 0:
                 raise AssertionError("%s never launched in the lean tier"
                                      % name)
@@ -1287,7 +1384,7 @@ def phase_lean(torch, dev, ref):
         del calls[:]
         os.makedirs(BUILD, exist_ok=True)
         pulse = []
-        stop = watch_pulse_loop(pulse)
+        stop = watch_pulse_search(pulse)
         try:
             res = traced(frames, dev, BUILD, False, lean=True)
         finally:
@@ -1337,22 +1434,31 @@ def phase_fields(torch, dev):
 
 
 def phase_search_kernels(torch, dev, res, pulse_calls):
-    """Phase 2d: pulse_loop on the arguments of phase 3c's traced
+    """Phase 2d: pulse_search on the arguments of phase 3c's traced
     band_search calls (`pulse_calls`, labelled), and sad_fields on the
     1080p translation pair, as one tile and as the 2 x 2 tiles of phase
     9's mesh, against their plain versions on the card."""
-    from daala_tpu_torch.codec.mc import OD_BUFFER_PADDING as pad
     from daala_tpu_torch.ops.cuda import pulse_kernels as PK
-    from daala_tpu_torch.ops.cuda import sad_kernels as SK
-    from daala_tpu_torch.utils.profile import H, W, translation_clip
     if not pulse_calls:
-        raise AssertionError("phase 3c captured no pulse_loop call")
+        raise AssertionError("phase 3c captured no pulse_search call")
     for label, args in pulse_calls:
         m, n = args[0].shape
-        record(torch, res, PK.KERNEL, "pulse_loop %s n=%d, %d rows"
-               % (label, n, m), lambda: PK.pulse_loop_cuda(*args),
-               lambda: PK.pulse_loop_plain(*args), pulse_work(args),
+        nbytes, ops, rate, trips = pulse_work(args)
+        record(torch, res, PK.KERNEL, "pulse_search %s n=%d, %d rows, "
+               "longest %d trips" % (label, n, m, trips),
+               lambda: PK.pulse_search_cuda(*args),
+               lambda: PK.pulse_search_plain(*args), (nbytes, ops, rate),
                PK.KERNELS)
+    sad_kernel_cases(torch, dev, res)
+
+
+def sad_kernel_cases(torch, dev, res, names=None):
+    """sad_fields against its plain version on the 1080p translation pair
+    at r = 16, as one tile and as the 2 x 2 tiles of phase 9's mesh.
+    names: the trace names of its kernels, by default the module's."""
+    from daala_tpu_torch.codec.mc import OD_BUFFER_PADDING as pad
+    from daala_tpu_torch.ops.cuda import sad_kernels as SK
+    from daala_tpu_torch.utils.profile import H, W, translation_clip
     frames = translation_clip(nframes=2)
     cur = frames[1][0]
     ref = np.pad(frames[0][0], pad, mode="edge")
@@ -1367,7 +1473,7 @@ def phase_search_kernels(torch, dev, res, pulse_calls):
                    % (r, c.shape[1], c.shape[0], label),
                    lambda: SK.sad_fields_cuda(ct, wt, r, nv, nh, oy, ox),
                    lambda: SK.sad_fields_plain(ct, wt, r, nv, nh, oy, ox),
-                   sad_work(c.shape, r, nv, nh), SK.KERNELS)
+                   sad_work(c.shape, r, nv, nh), names or SK.KERNELS)
     torch.cuda.synchronize()
 
 
@@ -2256,7 +2362,7 @@ def phase_bench(torch, dev, checked):
             raise AssertionError("bench probe %s: %s" % (name, probe))
         need = ("lap_frame", "dct_frame", "sad_fields") + (
             ("obmc_leaf_cells",) if name == "device+sweep" else ()) + (
-            ("pulse_loop",) if name != "analysis" else ())
+            ("pulse_search",) if name != "analysis" else ())
         for k in need:
             if probe["dev"]["launches"].get(k, 0) <= 0:
                 raise AssertionError("bench probe %s: %s never launched"
@@ -2536,7 +2642,7 @@ def kernel_line(kern, launches, phases):
     """The kernels line: each kernel's launches on its main path
     ("launches": lap_frame and dct_frame in phase 3's encode, obmc_blend
     in phase 2c, obmc_leaf_cells in phase 4's 1080p sweep encode,
-    sad_fields in phase 3's encode, pulse_loop in phase 3c's lean
+    sad_fields in phase 3's encode, pulse_search in phase 3c's lean
     encode) and, under each key of `phases`, its launches in that run:
     phase 3's analysis-tier encode ("analysis_launches"), phase 3c's
     lean encode ("lean_launches"), phase 4's 1080p sweep encode
@@ -2552,7 +2658,7 @@ def kernel_line(kern, launches, phases):
     kernels' device time per call in the trace ("device_ms"), the plain
     version's, and the bounds; "bound_by" names what bounds the larger
     part of bound_ms.  No single PyTorch call computes any of these
-    functions, so library_ms is null.  pulse_loop and sad_fields replace
+    functions, so library_ms is null.  pulse_search and sad_fields replace
     functions that JAX computes in XLA, not in Pallas."""
     pallas = "daala_tpu/ops/pallas/"
     sources = {
@@ -2560,8 +2666,8 @@ def kernel_line(kern, launches, phases):
         "dct_frame": ("dct_frame.cu", pallas + "dct_kernels.py:83"),
         "obmc_blend": ("obmc_leaf.cu", pallas + "obmc_kernels.py:191"),
         "obmc_leaf_cells": ("obmc_leaf.cu", pallas + "obmc_kernels.py:208"),
-        "pulse_loop": ("pulse_search.cu", "daala_tpu/models/pvqsearch.py:318"
-                       " _pulse_search (XLA in JAX)"),
+        "pulse_search": ("pulse_search.cu", "daala_tpu/models/pvqsearch.py:"
+                         "318 _pulse_search (XLA in JAX)"),
         "sad_fields": ("sad_fields.cu", "daala_tpu/models/mefield.py:42"
                        " _fullpel_fields (XLA in JAX)"),
     }
@@ -2589,8 +2695,9 @@ def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", metavar="PARENT",
-                    help="only phases 1 and 2, with the lap_frame.cu and "
-                    "dct_frame.cu of the checkout PARENT and of this tree "
+                    help="only phases 1 and 2 (and 2d's sad_fields "
+                    "cases), with the lap_frame.cu, dct_frame.cu and "
+                    "sad_fields.cu of the checkout PARENT and of this tree "
                     "in turns (parent, change, change, parent)")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "daala_tpu_torch")):
@@ -2630,7 +2737,7 @@ def main(argv=None):
     checked = {"analysis": sum(map(len, ref["packets"]))}
     lean = run("3c", phase_lean, torch, dev, ref)
     checked["device"] = lean["bytes"]
-    launches["pulse_loop"] = lean["launches"].get("pulse_loop", 0)
+    launches["pulse_search"] = lean["launches"].get("pulse_search", 0)
     run("2d", phase_search_kernels, torch, dev, kern,
         lean.pop("pulse_calls"))
     run("3d", phase_fields, torch, dev)

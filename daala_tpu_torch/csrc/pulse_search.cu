@@ -1,32 +1,46 @@
-// The greedy loop of the PVQ pulse search (models/pvqsearch.py
-// _pulse_search): for each row, min(iters, ceil(kf - i)) steps that each
-// add one pulse at the lane of the highest score (the first one on a
-// tie), with the row's sums xy, yy and i updated as it goes.
+// The PVQ pulse search (models/pvqsearch.py _pulse_search), whole, one
+// launch a call: for each row, the masked magnitudes and their sums, the
+// floor-projection init and the rate penalties, then min(iters, ceil(kf -
+// i)) steps that each add one pulse at the lane of the highest score (the
+// first one on a tie), then the signed pulses, ok and the cosine distance.
 //
-// Replaces the loop of _pulse_search (daala_tpu/models/pvqsearch.py:318),
-// which JAX runs as an XLA while_loop, not a Pallas kernel.  In the port's
-// plain version (ops/cuda/pulse_kernels.py pulse_loop_plain) every step is
-// about 60 small launches over the whole batch, and the trip count costs
-// one host sync a call.
+// Replaces _pulse_search (daala_tpu/models/pvqsearch.py:318), which JAX
+// runs in XLA (a while_loop), not a Pallas kernel.  The port's plain
+// version (ops/cuda/pulse_kernels.py pulse_search_plain) takes about 80
+// launches around its loop and about 60 a step, and reads the trip count
+// back to the host once a call.
 //
 // What bounds it: bytes, at the codec's band lengths (n = 8, 15, 32, 128):
 // each row's lanes are read once and its pulses written once, and a row
-// takes a few steps of a dozen float operations a lane.  In practice the
-// latency of the steps, each a warp-wide argmax, is what it waits on.
+// takes a few steps of a dozen float operations a lane.  In practice it
+// waits on latency: a call takes as long as its longest row's chain of
+// steps, each a score, an argmax across the row's lanes and an update.
 //
-// Design: one warp a row, lanes strided over n (lane l holds elements
-// l, l + 32, ...: PER of them in registers, n <= 32 PER), so a step is the
-// lanes' scores (csrc/pulse_step.cuh, the plain version's arithmetic
-// operation by operation), a butterfly argmax over the warp's shuffles
-// that breaks ties by the lowest index, and the chosen lane's owner
-// broadcasting its x and pulse count to the warp for the row's update.
-// Each row runs its own trip count, so no row waits for the batch's
-// largest, and nothing is read back to the host.
-//
-// Bit for bit with the plain loop on the same inputs: the loop holds no
-// reduction across lanes in float (the sums before it stay in torch), the
-// argmax is exact, and the step's float operations are the plain ones in
-// the plain order with no contraction (pulse_step.cuh).
+// Design:
+// - Rows of n <= 8 take 8 lanes and rows of n <= 16 take 16, so a warp
+//   holds 4 or 2 rows; longer rows take a warp, lanes strided over n
+//   (lane l holds elements l, l + 32, ...: PER of them in registers).
+//   After the sums, every shuffle and warp reduction names the row's
+//   lanes only, and each row runs its own trip count, so the rows of a
+//   warp never wait for each other.
+// - The row sums are chains in XLA:CPU's order: for n <= 32 one chain of
+//   fused multiply-adds from element 0 up, for longer rows one chain for
+//   each chunk of 32 lanes (XLA's reduce-window; register c of the 32
+//   lanes is chunk c), then the chunk sums in order.  A chain is serial
+//   and its float64 steps are costly, so each runs once, in one thread:
+//   the block stages its rows in shared memory and thread r PER + c runs
+//   the chains of row r's chunk c, reading a bank of its own.  (Run by
+//   every lane of the row, on elements broadcast by shuffles, the chains
+//   cost 30-60 times the instructions and made an inter call of 83,076
+//   rows of 32 lanes take 208 us.)
+// - A step's argmax is two warp reductions: the maximum of an int32 key
+//   that orders the scores (ps_key), then the lowest element index among
+//   the lanes at that key, which is torch's first maximum.  The chosen
+//   lane's x and pulse count come from its owner in one shuffle each.
+// - Every float operation is the plain version's, in its association,
+//   through csrc/pulse_step.cuh, so the kernel equals the plain version
+//   bit for bit; _rsqrt's zero-gives-inf is carried into cos_dist.
+// Nothing is read back to the host.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -37,68 +51,136 @@
 
 namespace {
 
-constexpr int WARPS = 4;  // rows a block
+constexpr int WARPS = 8;  // warps a block
+constexpr int CH = 33;    // floats a staged chunk of 32 lanes (+1: banks)
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int PER>
+// G lanes a row (8, 16 or 32), PER elements a lane (n <= G * PER; PER > 1
+// only with G = 32).
+template <int G, int PER>
 __global__ void __launch_bounds__(WARPS * 32) pulse_search_kernel(
-    const float *__restrict__ x, const float *__restrict__ yp_in,
-    const float *__restrict__ rate_pen, const uint8_t *__restrict__ ok,
-    const float *__restrict__ xy_in, const float *__restrict__ yy_in,
-    const float *__restrict__ i_in, const float *__restrict__ kf_in,
-    const float *__restrict__ rdo_in, const float *__restrict__ norm_in,
+    const float *__restrict__ xc, const int32_t *__restrict__ kin,
+    const float *__restrict__ g2in, const uint8_t *__restrict__ lane_ok,
     const float *__restrict__ rsq16, const int32_t *__restrict__ seed,
-    float *__restrict__ yp_out, float *__restrict__ xy_out,
-    float *__restrict__ yy_out, float *__restrict__ i_out, int m, int n,
-    int iters) {
+    int32_t *__restrict__ y_out, float *__restrict__ cos_out,
+    uint8_t *__restrict__ ok_out, int m, int n, int iters, float lam,
+    float d0, float a0, float d1, float a1) {
+  static_assert(G == 8 || G == 16 || G == 32, "a row takes 8, 16 or 32 lanes");
+  static_assert(PER == 1 || G == 32, "only a warp-wide row spans registers");
+  constexpr int RPW = 32 / G;        // rows a warp
+  constexpr int RB = WARPS * RPW;    // rows a block
+  constexpr int RS = PER * CH;       // floats a staged row
+  // The block's rows staged for the sums' chains: element 32 c + j of
+  // row r at r RS + c CH + j, so that the chain of (row r, chunk c),
+  // thread r PER + c, reads bank (thread + j) mod 32: no conflicts.
+  __shared__ float xs[RB * RS], ys[RB * RS];
+  __shared__ float part[RB * PER][3];  // a chain's sums
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= m) return;  // the whole warp: a warp is one row
+  const int gl = lane % G, sub = lane / G;
+  const unsigned gmask =
+      G == 32 ? FULL : ((FULL >> (32 - G)) << (sub * G));
+  const int rb = (threadIdx.x >> 5) * RPW + sub;  // the row in the block
+  const int row = blockIdx.x * RB + rb;
+  const bool live = row < m;  // the rest only meet the block's barriers
   const size_t base = (size_t)row * n;
-  float xr[PER], yr[PER], pr[PER];
-  bool okr[PER];
+  const int32_t k = live ? kin[row] : 0;
+  const float kf = (float)k;
+  float xr[PER], yr[PER];
+  bool neg[PER], okr[PER];
 #pragma unroll
   for (int q = 0; q < PER; q++) {
-    const int j = lane + 32 * q;
-    const bool in = j < n;
-    xr[q] = in ? x[base + j] : 0.0f;
-    yr[q] = in ? yp_in[base + j] : 0.0f;
-    pr[q] = in ? rate_pen[base + j] : 0.0f;
-    okr[q] = in && ok[base + j];
+    const int j = gl + G * q;
+    okr[q] = live && j < n && lane_ok[base + j];
+    const float v = okr[q] ? xc[base + j] : 0.0f;
+    neg[q] = v < 0.0f;
+    xr[q] = fabsf(v);
+    xs[rb * RS + q * CH + gl] = xr[q];
   }
-  float xy = xy_in[row], yy = yy_in[row], i = i_in[row];
-  const float kf = kf_in[row], rdo = rdo_in[row], norm_1 = norm_in[row];
+  __syncthreads();
+  // The chains of the row sums, one thread each (a row's, or for rows
+  // over 32 lanes a chunk's): x.x and |x|_1.  Lanes past n hold zeros,
+  // and adding a zero to a sum of non-negative values leaves it as it is.
+  const int ct = threadIdx.x;  // this thread's chain: (ct / PER, ct % PER)
+  const int nj = PER == 1 ? n : 32;
+  if (ct < RB * PER) {
+    const float *v = xs + (ct / PER) * RS + (ct % PER) * CH;
+    float a = 0.0f, b = 0.0f;
+    for (int j = 0; j < nj; j++) {
+      a = ps_dot_step(a, v[j], v[j], PER > 1);
+      b = ps_add(b, v[j]);
+    }
+    part[ct][0] = a;
+    part[ct][1] = b;
+  }
+  __syncthreads();
+  // The chunk sums in order (a row of at most 32 lanes has one).
+  float xx = 0.0f, l1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < PER; c++) {
+    xx = ps_add(xx, part[rb * PER + c][0]);
+    l1 = ps_add(l1, part[rb * PER + c][1]);
+  }
+#pragma unroll
+  for (int q = 0; q < PER; q++) {
+    yr[q] = ps_init_pulses(k, kf, xr[q], l1);
+    ys[rb * RS + q * CH + gl] = yr[q];
+  }
+  __syncthreads();
+  // The sums of the init's pulses: x.y, y.y and their count.
+  if (ct < RB * PER) {
+    const int at = (ct / PER) * RS + (ct % PER) * CH;
+    const float *v = xs + at, *p = ys + at;
+    float a = 0.0f, b = 0.0f, c = 0.0f;
+    for (int j = 0; j < nj; j++) {
+      a = ps_dot_step(a, v[j], p[j], PER > 1);
+      b = ps_dot_step(b, p[j], p[j], PER > 1);
+      c = ps_add(c, p[j]);
+    }
+    part[ct][0] = a;
+    part[ct][1] = b;
+    part[ct][2] = c;
+  }
+  __syncthreads();
+  if (!live) return;  // the row's lanes, together: no barrier follows
+  float xy = 0.0f, yy = 0.0f, i = 0.0f;
+#pragma unroll
+  for (int c = 0; c < PER; c++) {
+    xy = ps_add(xy, part[rb * PER + c][0]);
+    yy = ps_add(yy, part[rb * PER + c][1]);
+    i = ps_add(i, part[rb * PER + c][2]);
+  }
+  const float norm_1 = ps_rsqrt(ps_add(1e-30f, xx), seed);
+  const float lamr = ps_div(lam, ps_add(1e-30f, g2in[row]));
+  const float rdo = (float)((k >> 2) + 1);
+  float pen[PER];
+#pragma unroll
+  for (int q = 0; q < PER; q++)
+    pen[q] = ps_rate_pen(lamr, gl + G * q, k == 1 ? d1 : d0,
+                         k == 1 ? a1 : a0);
   const int trips = ps_trips(kf, i, iters);
   for (int t = 0; t < trips; t++) {
     const bool phase2 = i >= ps_add(kf, -rdo);
-    // This lane's first maximum (pos INT_MAX: the lane holds no element).
-    float best = -INFINITY;
+    // This lane's first maximum; a lane past n holds no element and keeps
+    // INT_MIN, below every score's key (-inf's included).
+    int32_t key = INT_MIN;
     int pos = INT_MAX;
 #pragma unroll
     for (int q = 0; q < PER; q++) {
-      const int j = lane + 32 * q;
+      const int j = gl + G * q;
       if (j < n) {
-        const float s = okr[q] ? ps_score(xr[q], yr[q], pr[q], xy, yy,
-                                          norm_1, phase2, rsq16, seed)
-                               : -INFINITY;
-        if (pos == INT_MAX || s > best) {
-          best = s;
+        const int32_t kq = ps_key(
+            okr[q] ? ps_score(xr[q], yr[q], pen[q], xy, yy, norm_1, phase2,
+                              rsq16, seed)
+                   : -INFINITY);
+        if (kq > key) {
+          key = kq;
           pos = j;
         }
       }
     }
-    // The warp's first maximum: the higher score, on a tie the lower
-    // index.  A total order, so every lane ends with the same (best, pos).
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const float ob = __shfl_xor_sync(FULL, best, d);
-      const int op = __shfl_xor_sync(FULL, pos, d);
-      if (ob > best || (ob == best && op < pos)) {
-        best = ob;
-        pos = op;
-      }
-    }
-    const int owner = pos & 31, qo = pos >> 5;
+    const int32_t best = __reduce_max_sync(gmask, key);
+    const int p = __reduce_min_sync(gmask, key == best ? pos : INT_MAX);
+    const int owner = p % G, qo = p / G;
     float xa = 0.0f, yo = 0.0f;
 #pragma unroll
     for (int q = 0; q < PER; q++)
@@ -106,75 +188,79 @@ __global__ void __launch_bounds__(WARPS * 32) pulse_search_kernel(
         xa = xr[q];
         yo = yr[q];
       }
-    xa = __shfl_sync(FULL, xa, owner);
-    yo = __shfl_sync(FULL, yo, owner);
+    xa = __shfl_sync(gmask, xa, owner, G);
+    yo = __shfl_sync(gmask, yo, owner, G);
     float ynew;
     ps_update(xa, yo, kf, &ynew, &xy, &yy, &i);
 #pragma unroll
     for (int q = 0; q < PER; q++)
-      if (lane == owner && q == qo) yr[q] = ynew;
+      if (gl == owner && q == qo) yr[q] = ynew;
   }
 #pragma unroll
   for (int q = 0; q < PER; q++) {
-    const int j = lane + 32 * q;
-    if (j < n) yp_out[base + j] = yr[q];
+    const int j = gl + G * q;
+    if (j < n)
+      y_out[base + j] = k == 0 ? 0 : (int32_t)(neg[q] ? -yr[q] : yr[q]);
   }
-  if (lane == 0) {
-    xy_out[row] = xy;
-    yy_out[row] = yy;
-    i_out[row] = i;
+  if (gl == 0) {
+    ok_out[row] = i >= kf;
+    cos_out[row] = ps_cos_dist(k, xy, xx, yy, seed);
   }
 }
 
-template <int PER>
-cudaError_t launch(const float *x, const float *yp, const float *rate_pen,
-                   const uint8_t *ok, const float *xy, const float *yy,
-                   const float *i, const float *kf, const float *rdo,
-                   const float *norm_1, const float *rsq16,
-                   const int32_t *seed, float *yp_out, float *xy_out,
-                   float *yy_out, float *i_out, int m, int n, int iters,
-                   cudaStream_t s) {
-  const int blocks = (m + WARPS - 1) / WARPS;
-  pulse_search_kernel<PER><<<blocks, WARPS * 32, 0, s>>>(
-      x, yp, rate_pen, ok, xy, yy, i, kf, rdo, norm_1, rsq16, seed, yp_out,
-      xy_out, yy_out, i_out, m, n, iters);
+struct Args {
+  const float *xc;
+  const int32_t *k;
+  const float *g2;
+  const uint8_t *lane_ok;
+  const float *rsq16;
+  const int32_t *seed;
+  int32_t *y;
+  float *cos_dist;
+  uint8_t *ok;
+  int m, n, iters;
+  float lam, d0, a0, d1, a1;
+};
+
+template <int G, int PER>
+cudaError_t launch(const Args &a, cudaStream_t s) {
+  const int rows = WARPS * (32 / G);  // rows a block
+  pulse_search_kernel<G, PER><<<(a.m + rows - 1) / rows, WARPS * 32, 0, s>>>(
+      a.xc, a.k, a.g2, a.lane_ok, a.rsq16, a.seed, a.y, a.cos_dist, a.ok,
+      a.m, a.n, a.iters, a.lam, a.d0, a.a0, a.d1, a.a1);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, yp, rate_pen: (m, n) float32; ok: (m, n) bytes (bool); xy, yy, i,
-// kf, rdo, norm_1: (m,) float32; rsq16: 16 float32; seed: 2048 int32.
-// Writes yp_out (m, n) and xy_out, yy_out, i_out (m,).  n <= 512, m >= 1.
-extern "C" int pulse_search(const void *x, const void *yp,
-                            const void *rate_pen, const void *ok,
-                            const void *xy, const void *yy, const void *i,
-                            const void *kf, const void *rdo,
-                            const void *norm_1, const void *rsq16,
-                            const void *seed, void *yp_out, void *xy_out,
-                            void *yy_out, void *i_out, int m, int n,
-                            int iters, void *stream) {
+// xc: (m, n) float32; k: (m,) int32; g2: (m,) float32; lane_ok: (m, n)
+// bytes (bool); rsq16: 16 float32; seed: 2048 int32.  Writes y (m, n)
+// int32, cos_dist (m,) float32 and ok (m,) bytes (bool).  lam and the
+// rate constants (d0, a0 for k != 1, d1, a1 for k = 1) are float32.
+// 1 <= n <= 512, m >= 1.
+extern "C" int pulse_search(const void *xc, const void *k, const void *g2,
+                            const void *lane_ok, const void *rsq16,
+                            const void *seed, void *y, void *cos_dist,
+                            void *ok, int m, int n, int iters, float lam,
+                            float d0, float a0, float d1, float a1,
+                            void *stream) {
   if (m <= 0 || n <= 0 || n > 512 || iters < 0)
     return (int)cudaErrorInvalidValue;
-  const int per = (n + 31) / 32;
-#define PS_ARGS                                                          \
-  (const float *)x, (const float *)yp, (const float *)rate_pen,          \
-      (const uint8_t *)ok, (const float *)xy, (const float *)yy,         \
-      (const float *)i, (const float *)kf, (const float *)rdo,           \
-      (const float *)norm_1, (const float *)rsq16, (const int32_t *)seed, \
-      (float *)yp_out, (float *)xy_out, (float *)yy_out, (float *)i_out,  \
-      m, n, iters, (cudaStream_t)stream
-  cudaError_t err;
-  if (per <= 1)
-    err = launch<1>(PS_ARGS);
-  else if (per <= 2)
-    err = launch<2>(PS_ARGS);
-  else if (per <= 4)
-    err = launch<4>(PS_ARGS);
-  else if (per <= 8)
-    err = launch<8>(PS_ARGS);
-  else
-    err = launch<16>(PS_ARGS);
-#undef PS_ARGS
-  return (int)err;
+  const Args a{(const float *)xc,      (const int32_t *)k,
+               (const float *)g2,      (const uint8_t *)lane_ok,
+               (const float *)rsq16,   (const int32_t *)seed,
+               (int32_t *)y,           (float *)cos_dist,
+               (uint8_t *)ok,          m,
+               n,                      iters,
+               lam,                    d0,
+               a0,                     d1,
+               a1};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 8) return (int)launch<8, 1>(a, s);
+  if (n <= 16) return (int)launch<16, 1>(a, s);
+  if (n <= 32) return (int)launch<32, 1>(a, s);
+  if (n <= 64) return (int)launch<32, 2>(a, s);
+  if (n <= 128) return (int)launch<32, 4>(a, s);
+  if (n <= 256) return (int)launch<32, 8>(a, s);
+  return (int)launch<32, 16>(a, s);
 }

@@ -24,10 +24,12 @@ host's f64 search; the host searches any band the device marks invalid
 (pulse budget overflow) itself, as in JAX.  The pulse search computes
 what XLA:CPU makes of JAX's: its three `1 / sqrt` are `_rsqrt`, the
 rsqrt that XLA rewrites them into (an estimate and two Newton steps,
-not the correctly rounded value), and the phase-2 score is one fused
-multiply-add, as XLA:CPU contracts it.  Each of these moved a pulse
-between two lanes of a near-tie otherwise (320x192 smooth clip at
-quant 8).
+not the correctly rounded value), the phase-2 score is one fused
+multiply-add, as XLA:CPU contracts it, and its row sums take XLA:CPU's
+order (chains of fused multiply-adds, or 32-lane chunks for n = 128;
+ops/cuda/pulse_kernels.py ordered_dot).  Each of these moved a pulse
+between two lanes of a near-tie, or the last bit of a distortion past
+2^24, otherwise (320x192 smooth clip at quant 8; a 1080p keyframe).
 
 Differences from the JAX module, none of which changes a result:
 
@@ -36,7 +38,7 @@ Differences from the JAX module, none of which changes a result:
   them is evaluated in closed form (`_select`), so the number of
   launches per call depends on neither the row count nor the candidate
   count (on the CPU, the pulse loop's trip count, which the data sets,
-  adds to them; on the card the loop is one kernel,
+  adds to them; on the card the whole pulse search is one kernel,
   ops/cuda/pulse_kernels.py);
 - no row chunking and no padding ladder: one call per band length and
   frame type, whatever the row count;
@@ -56,7 +58,7 @@ from daala_tpu_torch.models.analysis import wrap32 as _wrap32
 from daala_tpu_torch.ops import partition as part
 from daala_tpu_torch.ops import pvq as P
 from daala_tpu_torch.ops.cuda.pulse_kernels import (  # noqa: F401
-    _fma32, _rsqrt, pulse_loop)
+    _fma32, _rsqrt, pulse_search)
 from daala_tpu_torch.parallel.sharding import stage_hook
 from daala_tpu_torch.utils import devstats
 
@@ -350,49 +352,15 @@ def _pulse_search(xc, k, g2, lam, n, iters, lane_ok=None):
     signed (m, n) int32, cos_dist (m,), ok (m,): False when `iters`
     steps were not enough).  Fresh search per call.
 
-    The greedy loop after the floor-projection init is ops/cuda/
-    pulse_kernels.py pulse_loop: on the card a kernel that runs each
-    row's own trip count (the pulses it still needs, capped at
-    `iters`), with no host sync; on the CPU the plain loop, which reads
-    the largest trip count once per call and masks the rows that finish
-    early, as in the JAX while_loop."""
-    dev = xc.device
+    The whole search is ops/cuda/pulse_kernels.py pulse_search: on the
+    card one kernel launch that runs each row's own trip count (the
+    pulses it still needs, capped at `iters`), with no host sync; on
+    the CPU the plain version, which reads the largest trip count once
+    per call and masks the rows that finish early, as in the JAX
+    while_loop.  Its row sums take XLA:CPU's order."""
     if lane_ok is None:
-        lane_ok = torch.ones(xc.shape, dtype=torch.bool, device=dev)
-    xc = torch.where(lane_ok, xc, 0.0)
-    x = xc.abs()
-    xx = (x * x).sum(-1)
-    norm_1 = _rsqrt(1e-30 + xx)
-    lamr = _fconst(lam, g2) / (1e-30 + g2)
-    kf = k.float()
-    # Floor-projection init for k > 2 (host: k > 2 branch).
-    l1 = x.sum(-1, keepdim=True)
-    yp = torch.floor(kf[:, None] * x / l1.clamp_min(1e-30))
-    yp = yp.clamp_min(0.0)
-    yp = torch.where((k > 2)[:, None], yp, 0.0)
-    xy = (x * yp).sum(-1)
-    yy = (yp * yp).sum(-1)
-    i = yp.sum(-1)
-    rdo_pulses = 1 + torch.div(k, 4, rounding_mode="floor")
-    delta_rate = torch.full_like(kf, 3.0 / n)
-    accel_rate = torch.zeros_like(kf)
-    if n == 15:
-        accel_rate = torch.where(k == 1, -8.0 / n, accel_rate)
-        delta_rate = torch.where(k == 1, 4.5 / n - (-8.0 / n), delta_rate)
-    elif n == 8:
-        accel_rate = torch.where(k == 1, 5.7 / n, accel_rate)
-        delta_rate = torch.where(k == 1, 9.3 / n - 5.7 / n, delta_rate)
-    jidx = torch.arange(n, dtype=torch.float32, device=dev)
-    rate_pen = (lamr[:, None] * jidx[None, :]
-                * (delta_rate[:, None] + jidx[None, :] * accel_rate[:, None]))
-    yp, xy, yy, i = pulse_loop(x, yp, xy, yy, i, kf, rdo_pulses, norm_1,
-                               rate_pen, lane_ok, iters)
-    ok = i >= kf
-    cos_dist = xy * _rsqrt(xx * yy)
-    cos_dist = torch.where(k == 0, 0.0, cos_dist)
-    y = torch.where(xc < 0, -yp, yp).to(torch.int32)
-    y = torch.where((k == 0)[:, None], 0, y)
-    return y, cos_dist, ok
+        lane_ok = torch.ones(xc.shape, dtype=torch.bool, device=xc.device)
+    return pulse_search(xc, k, g2, lam, lane_ok, iters)
 
 
 def _fast_rate(y, k, n_eff, n):

@@ -1,26 +1,29 @@
-"""The greedy loop of the PVQ pulse search: the CUDA kernel
-(csrc/pulse_search.cu) and its plain PyTorch version.
+"""The PVQ pulse search: the CUDA kernel (csrc/pulse_search.cu) and its
+plain PyTorch version.
 
-Replaces the loop of _pulse_search (daala_tpu/models/pvqsearch.py:318),
-which JAX runs as an XLA while_loop, not a Pallas kernel.  The caller
-(models/pvqsearch.py _pulse_search) computes everything before the loop
-in torch: the floor-projection init and the row sums xx, l1, xy, yy, i,
-norm_1 and the rate penalties.  Those float32 sums are the search's only
-reductions whose order matters, so with them outside, the kernel equals
-the plain loop bit for bit on the same inputs.
+Replaces _pulse_search (daala_tpu/models/pvqsearch.py:318), which JAX
+runs in XLA, not Pallas: for each (m, n) row of signed coefficients,
+the masked magnitudes and their sums, the floor-projection init, the
+rate penalties, the greedy loop that adds one pulse at a time at the
+lane of the highest score (the first on a tie), and the signed pulses
+and the cosine distance after it.  One launch a call on the card.
 
-Each row adds pulses one at a time, min(iters, ceil(kf - i)) of them,
-at the lane of the highest score (the first on a tie): the correlation
-score until the last rdo_pulses pulses, then the rate-penalised one.
+The float32 row sums (x.x, x.y, y.y, |x|_1 and the init's pulse count)
+are taken in the order XLA:CPU takes JAX's (`ordered_sum`,
+`ordered_dot`); they set the distortion of every candidate and, past
+2^24, differ in the last bit between orders.  The step's arithmetic is
+csrc/pulse_step.cuh, every float operation in the plain version's
+association, so the kernel equals the plain version bit for bit;
+tests/test_torch_pulse_plan.py compiles the header for the host.
+
 The plain version runs the batch's largest trip count with the rows
 that have their pulses frozen, and reads that count back to the host
-once a call; the kernel runs each row's own count (one warp a row), so
-nothing comes back to the host.  The step's arithmetic is
-csrc/pulse_step.cuh, which tests/test_torch_pulse_plan.py also compiles
-for the host.
+once a call; the kernel runs each row's own count, so nothing comes
+back to the host.
 
-`pulse_loop` launches the kernel for tensors on a CUDA device and runs
-the plain version only for tensors on the CPU; there is no fallback.
+`pulse_search` launches the kernel for tensors on a CUDA device and
+runs the plain version only for tensors on the CPU; there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -36,10 +39,12 @@ from daala_tpu_torch.ops.cuda import _build
 from daala_tpu_torch.utils import devstats
 
 NAME = "pulse_search"  # the source, csrc/pulse_search.cu
-KERNEL = "pulse_loop"  # the launch count's name
+KERNEL = "pulse_search"  # the launch count's name
 KERNELS = ("pulse_search_kernel",)  # the source's __global__ functions
 MAX_N = 512  # the widest row the kernel takes (32 lanes x 16 registers)
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+CHUNK = 32  # XLA:CPU sums rows longer than this in chunks of this many
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P] * 9 + [_I] * 3 + [_F] * 5 + [_P]
 
 _RSQRT16 = (1.000000, 0.707107, 0.577350, 0.500000, 0.447214, 0.408248,
             0.377964, 0.353553, 0.333333, 0.316228, 0.301511, 0.288675,
@@ -90,12 +95,65 @@ def _rsqrt(x):
     return torch.where(x == 0, math.inf, y)
 
 
+def ordered_sum(v):
+    """The float32 sums of the rows of v (m, n) in XLA:CPU's order: for
+    n <= 32 one chain from lane 0 up; longer rows in chunks of 32 lanes
+    (XLA's reduce-window), each chunk a chain, then the chunk sums in
+    order.  Checked against JAX at n = 8, 15, 32, 64, 128 and 256; other
+    lengths over 32 are summed as if padded with zeros to a multiple of
+    32.  At most 32 steps over (m, n / 32) tensors."""
+    m, n = v.shape
+    if n <= CHUNK:
+        acc = v.new_zeros(m)
+        for j in range(n):
+            acc = acc + v[:, j]
+        return acc
+    nc = -(-n // CHUNK)
+    v = torch.nn.functional.pad(v, (0, nc * CHUNK - n)).view(m, nc, CHUNK)
+    acc = v.new_zeros(m, nc)
+    for j in range(CHUNK):
+        acc = acc + v[:, :, j]
+    total = v.new_zeros(m)
+    for c in range(nc):
+        total = total + acc[:, c]
+    return total
+
+
+def ordered_dot(a, b):
+    """The float32 dot products of the rows of a and b (m, n) in XLA:CPU's
+    order: for n <= 32 one chain of fused multiply-adds from lane 0 up
+    (LLVM contracts the product into the sum); longer rows round each
+    product to float32 and sum them as `ordered_sum`."""
+    m, n = a.shape
+    if n > CHUNK:
+        return ordered_sum(a * b)
+    prod = a.double() * b.double()  # exact: each step is _fma32's
+    acc = a.new_zeros(m)
+    for j in range(n):
+        acc = (prod[:, j] + acc).float()
+    return acc
+
+
+def rate_constants(n):
+    """(delta, accel, delta for k = 1, accel for k = 1): the float32 rate
+    model constants of a row of n lanes (the reference's n = 8 and 15
+    special cases for k = 1)."""
+    delta, accel = np.float32(3.0 / n), np.float32(0.0)
+    if n == 15:
+        return delta, accel, np.float32(4.5 / n - (-8.0 / n)), \
+            np.float32(-8.0 / n)
+    if n == 8:
+        return delta, accel, np.float32(9.3 / n - 5.7 / n), \
+            np.float32(5.7 / n)
+    return delta, accel, delta, accel
+
+
 def pulse_loop_plain(x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen,
                      lane_ok, iters):
-    """The plain PyTorch version: what the kernel computes.  The trip
-    count is read once per call (one host sync): the largest number of
-    pulses any row still needs, capped at `iters`.  Rows that finish
-    early are masked, as in the JAX while_loop."""
+    """The greedy loop of the plain version.  The trip count is read once
+    per call (one host sync): the largest number of pulses any row still
+    needs, capped at `iters`.  Rows that finish early are masked, as in
+    the JAX while_loop."""
     dev = x.device
     rsq = _rsqrt16(dev)
     rows = torch.arange(x.shape[0], device=dev)
@@ -123,32 +181,62 @@ def pulse_loop_plain(x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen,
     return yp, xy, yy, i
 
 
-def _check(x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen, lane_ok,
-           iters):
-    if x.dim() != 2:
-        raise ValueError("pulse_loop takes (m, n) rows, got %s"
-                         % (tuple(x.shape),))
-    m, n = x.shape
-    for name, t, shape, dtype in (
-            ("x", x, (m, n), torch.float32),
-            ("yp", yp, (m, n), torch.float32),
-            ("rate_pen", rate_pen, (m, n), torch.float32),
-            ("lane_ok", lane_ok, (m, n), torch.bool),
-            ("xy", xy, (m,), torch.float32),
-            ("yy", yy, (m,), torch.float32),
-            ("i", i, (m,), torch.float32),
-            ("kf", kf, (m,), torch.float32),
-            ("rdo_pulses", rdo_pulses, (m,), None),
-            ("norm_1", norm_1, (m,), torch.float32)):
-        if tuple(t.shape) != shape or (dtype is not None
-                                       and t.dtype != dtype):
-            raise ValueError("pulse_loop: %s is %s %s, wants %s %s"
-                             % (name, t.dtype, tuple(t.shape), dtype, shape))
-        if t.device != x.device:
-            raise ValueError("pulse_loop: %s is on %s, x on %s"
-                             % (name, t.device, x.device))
+def pulse_search_plain(xc, k, g2, lam, lane_ok, iters):
+    """The plain PyTorch version: what the kernel computes.  Returns (y
+    signed (m, n) int32, cos_dist (m,) float32, ok (m,) bool)."""
+    n = xc.shape[1]
+    xc = torch.where(lane_ok, xc, 0.0)
+    x = xc.abs()
+    xx = ordered_dot(x, x)
+    norm_1 = _rsqrt(1e-30 + xx)
+    lamr = torch.full((), lam, dtype=torch.float32,
+                      device=g2.device) / (1e-30 + g2)
+    kf = k.float()
+    # Floor-projection init for k > 2 (host: k > 2 branch).
+    l1 = ordered_sum(x)[:, None]
+    yp = torch.floor(kf[:, None] * x / l1.clamp_min(1e-30))
+    yp = yp.clamp_min(0.0)
+    yp = torch.where((k > 2)[:, None], yp, 0.0)
+    xy = ordered_dot(x, yp)
+    yy = ordered_dot(yp, yp)
+    i = ordered_sum(yp)
+    rdo_pulses = 1 + torch.div(k, 4, rounding_mode="floor")
+    delta, accel, delta1, accel1 = rate_constants(n)
+    delta_rate = torch.where(k == 1, float(delta1), float(delta)).float()
+    accel_rate = torch.where(k == 1, float(accel1), float(accel)).float()
+    jidx = torch.arange(n, dtype=torch.float32, device=xc.device)
+    rate_pen = (lamr[:, None] * jidx[None, :]
+                * (delta_rate[:, None] + jidx[None, :] * accel_rate[:, None]))
+    yp, xy, yy, i = pulse_loop_plain(x, yp, xy, yy, i, kf, rdo_pulses,
+                                     norm_1, rate_pen, lane_ok, iters)
+    ok = i >= kf
+    cos_dist = xy * _rsqrt(xx * yy)
+    cos_dist = torch.where(k == 0, 0.0, cos_dist)
+    y = torch.where(xc < 0, -yp, yp).to(torch.int32)
+    y = torch.where((k == 0)[:, None], 0, y)
+    return y, cos_dist, ok
+
+
+def _check(xc, k, g2, lane_ok, iters):
+    if xc.dim() != 2 or xc.dtype != torch.float32:
+        raise ValueError("pulse_search takes (m, n) float32 rows, got %s %s"
+                         % (xc.dtype, tuple(xc.shape)))
+    m, n = xc.shape
+    if n == 0:
+        raise ValueError("pulse_search takes rows of at least one lane")
+    for name, t, shape, ok in (
+            ("k", k, (m,), not k.is_floating_point() and not k.is_complex()
+             and k.dtype != torch.bool),
+            ("g2", g2, (m,), g2.dtype == torch.float32),
+            ("lane_ok", lane_ok, (m, n), lane_ok.dtype == torch.bool)):
+        if tuple(t.shape) != shape or not ok:
+            raise ValueError("pulse_search: %s is %s %s, wants %s"
+                             % (name, t.dtype, tuple(t.shape), shape))
+        if t.device != xc.device:
+            raise ValueError("pulse_search: %s is on %s, xc on %s"
+                             % (name, t.device, xc.device))
     if iters < 0:
-        raise ValueError("pulse_loop: iters %d < 0" % iters)
+        raise ValueError("pulse_search: iters %d < 0" % iters)
 
 
 def build():
@@ -157,52 +245,51 @@ def build():
     return _build.load(NAME, {NAME: _ARGTYPES})
 
 
-def pulse_loop_cuda(x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen,
-                    lane_ok, iters):
+def pulse_search_cuda(xc, k, g2, lam, lane_ok, iters):
     """Launch csrc/pulse_search.cu on CUDA tensors; returns new tensors
-    (yp, xy, yy, i)."""
-    _check(x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen, lane_ok,
-           iters)
-    if x.device.type != "cuda":
-        raise ValueError("pulse_loop_cuda takes CUDA tensors")
-    m, n = x.shape
+    (y, cos_dist, ok)."""
+    _check(xc, k, g2, lane_ok, iters)
+    if xc.device.type != "cuda":
+        raise ValueError("pulse_search_cuda takes CUDA tensors")
+    m, n = xc.shape
     if n > MAX_N:
-        raise ValueError("pulse_loop_cuda takes rows of at most %d lanes, "
-                         "got %d" % (MAX_N, n))
-    ins = [t.contiguous() for t in (x, yp, rate_pen, lane_ok, xy, yy, i,
-                                    kf, rdo_pulses.to(torch.float32),
-                                    norm_1)]
-    outs = [torch.empty_like(yp)] + [torch.empty_like(xy) for _ in range(3)]
+        raise ValueError("pulse_search_cuda takes rows of at most %d lanes,"
+                         " got %d" % (MAX_N, n))
+    ins = [xc.contiguous(), k.to(torch.int32).contiguous(),
+           g2.contiguous(), lane_ok.contiguous()]
+    y = torch.empty((m, n), dtype=torch.int32, device=xc.device)
+    cos_dist = torch.empty((m,), dtype=torch.float32, device=xc.device)
+    ok = torch.empty((m,), dtype=torch.bool, device=xc.device)
     if m == 0:
-        return tuple(outs)
+        return y, cos_dist, ok
     lib = build()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream(xc.device).cuda_stream
         err = lib.pulse_search(
-            *[t.data_ptr() for t in ins], _rsqrt16(x.device).data_ptr(),
-            _rsqrt_seed(x.device).data_ptr(),
-            *[t.data_ptr() for t in outs], m, n, int(iters), stream)
+            *[t.data_ptr() for t in ins], _rsqrt16(xc.device).data_ptr(),
+            _rsqrt_seed(xc.device).data_ptr(), y.data_ptr(),
+            cos_dist.data_ptr(), ok.data_ptr(), m, n, int(iters),
+            float(np.float32(lam)), *map(float, rate_constants(n)), stream)
     devstats.launch(KERNEL)
     _build.check(err, KERNEL)
-    return tuple(outs)
+    return y, cos_dist, ok
 
 
-def pulse_loop(x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen, lane_ok,
-               iters):
-    """The greedy pulse loop of the PVQ search over (m, n) rows.
+def pulse_search(xc, k, g2, lam, lane_ok, iters):
+    """The greedy RDO pulse search over (m, n) rows.
 
-    x: |coefficients| with masked lanes zero; yp: the init's pulses;
-    xy, yy, i: the rows' x.yp, yp.yp and pulse count; kf: the target
-    pulses (float); rdo_pulses: the last pulses scored with the rate
-    penalty rate_pen (m, n); norm_1: 1 / |x|; lane_ok: the lanes that
-    may take a pulse; iters: the cap on steps.  Returns (yp, xy, yy,
-    i) after the loop.  The kernel on CUDA tensors, the plain version on
-    CPU tensors."""
-    args = (x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen, lane_ok,
-            iters)
-    if x.device.type == "cuda":
-        return pulse_loop_cuda(*args)
-    if x.device.type == "cpu":
-        _check(*args)
-        return pulse_loop_plain(*args)
-    raise ValueError("pulse_loop: unsupported device %s" % x.device)
+    xc: float32 signed coefficients; k: (m,) integer target pulses
+    (int32 values);
+    g2: (m,) float32 distortion scales; lam: the rate multiplier (a
+    host float, rounded to float32); lane_ok: (m, n) bool, the lanes
+    that may take a pulse (the others count as zero); iters: the cap on
+    steps.  Returns (y signed (m, n) int32, cos_dist (m,) float32, ok
+    (m,) bool: False when `iters` steps were not enough).  The kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    args = (xc, k, g2, lam, lane_ok, iters)
+    if xc.device.type == "cuda":
+        return pulse_search_cuda(*args)
+    if xc.device.type == "cpu":
+        _check(xc, k, g2, lane_ok, iters)
+        return pulse_search_plain(*args)
+    raise ValueError("pulse_search: unsupported device %s" % xc.device)

@@ -11,10 +11,10 @@ how the tiles and their offsets are cut).
 
 The plain version computes the (noff, ch, cw) cell sums, one dy at a
 time with every dx at once, then sums them per window.  The kernel runs
-a block per vertex window with its pixels in shared memory and writes
-only the window sums, in one launch per tile and reference; it is bound
-by its byte differences, not by HBM.  See the note in
-csrc/sad_fields.cu.
+one block an SM, each taking vertex windows in turn with a window's
+pixels in shared memory (the next one's copy in flight), and writes only
+the window sums, in one launch per tile and reference; it is bound by its
+byte differences, not by HBM.  See the note in csrc/sad_fields.cu.
 
 `sad_fields` launches the kernel for tensors on a CUDA device and runs
 the plain version only for tensors on the CPU; there is no fallback.

@@ -532,16 +532,27 @@ def test_sad_fields_on_card_match_cpu(card):
         np.testing.assert_array_equal(g, wnt)
 
 
+def _same_bits(got, want):
+    """Outputs equal bit for bit (floats by their bits, NaN too), every
+    one on the card."""
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("is_keyframe", [False, True])
-def test_pulse_loop_kernel_matches_plain(card, is_keyframe):
-    """csrc/pulse_search.cu against pulse_loop_plain on the card, bit for
-    bit, on the loop's arguments of band_search over
+def test_pulse_search_kernel_matches_plain(card, is_keyframe):
+    """csrc/pulse_search.cu against pulse_search_plain on the card, bit for
+    bit, on _pulse_search's arguments in band_search over
     test_band_search_on_card_matches_cpu's rows at a 1080p frame's row
-    counts (every band length of the codec, and 512)."""
-    from chip_smoke import watch_pulse_loop
+    counts (every band length of the codec, and 512): one launch a
+    call."""
+    from chip_smoke import watch_pulse_search
     from daala_tpu_torch.ops.cuda import pulse_kernels as PK
     calls = []
-    restore = watch_pulse_loop(calls)
+    restore = watch_pulse_search(calls)
     try:
         for n, m in [(8, 20000), (15, 30000), (32, 8000), (128, 2000),
                      (512, 300)]:
@@ -551,11 +562,26 @@ def test_pulse_loop_kernel_matches_plain(card, is_keyframe):
     assert len(calls) == 5
     for args in calls:
         devstats.reset()
-        got = PK.pulse_loop(*args)
+        got = PK.pulse_search(*args)
         assert devstats.snapshot()["launches"] == {PK.KERNEL: 1}
-        for g, w in zip(got, PK.pulse_loop_plain(*args)):
-            assert g.device.type == "cuda"
-            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        _same_bits(got, PK.pulse_search_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 15, 20, 32, 33, 100, 128, 512])
+@pytest.mark.parametrize("capped", [False, True])
+def test_pulse_search_kernel_on_random_rows(card, n, capped):
+    """The kernel against the plain version on the card on
+    tests/test_torch_pulse_plan.py's random rows (ties, magnitudes up to
+    32,767, masked lanes, a row with every lane masked, k = 0..3 and
+    large, the `iters` cap), at every row width the kernel instantiates
+    (8 and 16 lanes a row, a warp, 2 to 16 registers a lane)."""
+    from daala_tpu_torch.ops.cuda import pulse_kernels as PK
+    from test_torch_pulse_plan import _random_inputs
+    args = _random_inputs(n, 3000 if n <= 128 else 600, 17 * n + capped,
+                          iters=3 if capped else None)
+    args = [a.to(card) if torch.is_tensor(a) else a for a in args]
+    _same_bits(PK.pulse_search(*args), PK.pulse_search_plain(*args))
     torch.cuda.synchronize()
 
 
@@ -582,6 +608,32 @@ def test_sad_fields_kernel_matches_plain(card):
             assert devstats.snapshot()["launches"] == {SK.NAME: 1}
             assert torch.equal(got, SK.sad_fields_plain(ct, wt, r, nv, nh,
                                                         oy, ox))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("r", [0, 1, 16, 64])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_sad_fields_kernel_on_ragged_tiles(card, r, offset):
+    """The kernel against the plain version on the card on the ragged
+    tiles of tests/test_torch_sad_plan.py (partial cells, widths that are
+    no multiple of 4, windows clipped by the margins), the planes as
+    views at storage offsets 0 and 3: at 0 the tile whose rows start on
+    16 bytes takes the cp.async staging, at 3 every tile the staging
+    through registers."""
+    from daala_tpu_torch.ops.cuda import sad_kernels as SK
+    from test_torch_sad_plan import TILES, _tile
+
+    def view(a):
+        t = torch.zeros(a.size + 16, dtype=torch.uint8, device=card)
+        t = t[offset:offset + a.size].view(a.shape)
+        return t.copy_(torch.from_numpy(a))
+    for k, (vh, vw, oy, ox, nv, nh) in enumerate(TILES):
+        cur, ref = _tile(r + 10 * k, vh, vw, r)
+        ct, wt = view(cur), view(ref)
+        assert ct.is_contiguous() and ct.data_ptr() % 16 == offset
+        got = SK.sad_fields(ct, wt, r, nv, nh, oy, ox)
+        assert torch.equal(got, SK.sad_fields_plain(ct, wt, r, nv, nh, oy,
+                                                    ox))
     torch.cuda.synchronize()
 
 

@@ -1,21 +1,27 @@
-"""The step of the PVQ pulse-search kernel (csrc/pulse_step.cuh), compiled
-for the host with g++ -ffp-contract=off and run row by row, against the
-plain loop (ops/cuda/pulse_kernels.py pulse_loop_plain) bit for bit:
+"""The PVQ pulse-search kernel's arithmetic (csrc/pulse_step.cuh),
+compiled for the host with g++ -ffp-contract=off and run row by row as
+the whole search (the masked magnitudes, the row sums in XLA:CPU's
+order, the floor-projection init, the rate penalties, the loop, the
+signed pulses, ok and cos_dist), against the plain version
+(ops/cuda/pulse_kernels.py pulse_search_plain) bit for bit:
 
 - on the rows of every band_search call of a small lean encode (a
   keyframe and an inter frame, band lengths 8, 15, 32 and 128);
 - on random rows at n = 8, 15, 32, 128 and 512 with ties (integer
-  magnitudes from a small set, all-zero rows), masked lanes (a row with
-  every lane masked among them), k = 0, 1, 2, 3 and large, and an
-  `iters` cap that stops rows short of their pulses.
+  magnitudes from a small set, all-zero rows), magnitudes up to 32,767
+  (sums past 2^24), masked lanes (a row with every lane masked among
+  them), k = 0, 1, 2, 3 and large, and an `iters` cap that stops rows
+  short of their pulses.
 
 The per-row trip count, min(iters, ceil(kf - i)), which the kernel runs
 in place of the batch's largest, gives the batched loop's result: each
-row alone through pulse_loop_plain equals the batch.  And the wrapper
-runs the plain loop on the CPU and raises on another device.
+row alone through pulse_loop_plain equals the batch.  The argmax key
+orders scores as torch's argmax does.  And the wrapper runs the plain
+version on the CPU and raises on another device.
 
-Every value compared is a float32 bit pattern, so the tolerance is zero.
-The kernel itself runs only on a card (tests/test_torch_cuda.py).
+Every value compared is a float32 bit pattern or an integer, so the
+tolerance is zero.  The kernel itself runs only on a card
+(tests/test_torch_cuda.py).
 """
 
 import ctypes
@@ -41,19 +47,22 @@ CSRC = os.path.join(REPO, "daala_tpu_torch", "csrc")
 
 _HOST = r"""
 #include "pulse_step.cuh"
-extern "C" void pulse_rows(int m, int n, const float *x, float *yp,
-                           const float *rate_pen, const uint8_t *ok,
-                           float *xy, float *yy, float *i, const float *kf,
-                           const float *rdo, const float *norm_1, int iters,
-                           const float *rsq16, const int32_t *seed) {
+extern "C" int pulse_rows(int m, int n, const float *xc, const int32_t *k,
+                          const float *g2, float lam, const uint8_t *ok_lanes,
+                          int iters, float d0, float a0, float d1, float a1,
+                          const float *rsq16, const int32_t *seed, int32_t *y,
+                          float *cos_dist, uint8_t *ok, int32_t *trips) {
   for (int r = 0; r < m; r++)
-    ps_row_host(n, x + (size_t)r * n, yp + (size_t)r * n,
-                rate_pen + (size_t)r * n, ok + (size_t)r * n, xy + r, yy + r,
-                i + r, kf[r], rdo[r], norm_1[r], iters, rsq16, seed);
+    trips[r] = ps_search_row_host(
+        n, xc + (size_t)r * n, k[r], g2[r], lam, ok_lanes + (size_t)r * n,
+        iters, d0, a0, d1, a1, rsq16, seed, y + (size_t)r * n, cos_dist + r,
+        ok + r);
+  return 0;
 }
 extern "C" int pulse_trips(float kf, float i, int iters) {
   return ps_trips(kf, i, iters);
 }
+extern "C" int pulse_key(float score) { return ps_key(score); }
 """
 
 
@@ -66,58 +75,64 @@ def host_step(tmp_path_factory):
                     "-shared", "-fPIC", "-I", CSRC, str(src), "-o", str(so)],
                    check=True)
     lib = ctypes.CDLL(str(so))
-    lib.pulse_rows.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                               + [ctypes.c_int] + [ctypes.c_void_p] * 2)
-    lib.pulse_rows.restype = None
-    lib.pulse_trips.argtypes = [ctypes.c_float, ctypes.c_float, ctypes.c_int]
-    lib.pulse_trips.restype = ctypes.c_int
+    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.pulse_rows.argtypes = ([_I, _I, _P, _P, _P, _F, _P, _I]
+                               + [_F] * 4 + [_P] * 6)
+    lib.pulse_trips.argtypes = [_F, _F, _I]
+    lib.pulse_key.argtypes = [_F]
     return lib
 
 
-def _host_loop(lib, x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen,
-               lane_ok, iters):
-    """The header's row loop over every row: (yp, xy, yy, i) as numpy."""
-    f = lambda t: np.ascontiguousarray(t.numpy(), np.float32)
-    m, n = x.shape
-    ins = [f(x), f(rate_pen),
-           np.ascontiguousarray(lane_ok.numpy(), np.uint8), f(kf),
-           f(rdo_pulses.float()), f(norm_1),
-           f(PK._rsqrt16(torch.device("cpu"))),
+def _host_search(lib, xc, k, g2, lam, lane_ok, iters):
+    """The header's whole search over every row: (y, cos_dist, ok, trips)
+    as numpy."""
+    m, n = xc.shape
+    f32 = lambda t: np.ascontiguousarray(t.numpy(), np.float32)
+    ins = [f32(xc), np.ascontiguousarray(k.numpy(), np.int32), f32(g2),
+           np.ascontiguousarray(lane_ok.numpy(), np.uint8),
+           f32(PK._rsqrt16(torch.device("cpu"))),
            np.ascontiguousarray(PK._rsqrt_seed(torch.device("cpu")).numpy())]
-    outs = [f(yp).copy(), f(xy).copy(), f(yy).copy(), f(i).copy()]
+    y = np.zeros((m, n), np.int32)
+    cos_dist = np.zeros(m, np.float32)
+    ok = np.zeros(m, np.uint8)
+    trips = np.zeros(m, np.int32)
     p = lambda a: a.ctypes.data
     if m:
-        lib.pulse_rows(m, n, p(ins[0]), p(outs[0]), p(ins[1]), p(ins[2]),
-                       p(outs[1]), p(outs[2]), p(outs[3]), p(ins[3]),
-                       p(ins[4]), p(ins[5]), iters, p(ins[6]), p(ins[7]))
-    return outs
+        lib.pulse_rows(m, n, p(ins[0]), p(ins[1]), p(ins[2]),
+                       float(np.float32(lam)), p(ins[3]), iters,
+                       *map(float, PK.rate_constants(n)), p(ins[4]),
+                       p(ins[5]), p(y), p(cos_dist), p(ok), p(trips))
+    return y, cos_dist, ok.astype(bool), trips
 
 
-def _assert_bits(got, want):
-    for g, w in zip(got, want):
-        w = np.ascontiguousarray(w.numpy(), np.float32)
-        assert g.shape == w.shape
-        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+def _assert_same(got, want):
+    """The host search's (y, cos_dist, ok) against the plain version's,
+    bit for bit."""
+    y, cos_dist, ok = (w.numpy() for w in want)
+    np.testing.assert_array_equal(got[0], y)
+    np.testing.assert_array_equal(got[1].view(np.int32),
+                                  cos_dist.view(np.int32))
+    np.testing.assert_array_equal(got[2], ok)
 
 
 class _Capture:
-    """Replaces pvqsearch.pulse_loop, keeping copies of its inputs and
-    its outputs (the plain loop's, on the CPU)."""
+    """Replaces pvqsearch.pulse_search, keeping copies of its inputs and
+    its outputs (the plain version's, on the CPU)."""
 
     def __init__(self, monkeypatch):
         self.calls = []
-        monkeypatch.setattr(PS, "pulse_loop", self)
+        monkeypatch.setattr(PS, "pulse_search", self)
 
     def __call__(self, *args):
         ins = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
-        out = PK.pulse_loop(*args)
+        out = PK.pulse_search(*args)
         self.calls.append((ins, out))
         return out
 
 
 @pytest.fixture(scope="module")
 def encode_rows():
-    """The pulse_loop inputs and outputs of every band_search call of a
+    """The pulse_search inputs and outputs of every band_search call of a
     lean encode of a 160x96 textured clip (a keyframe and an inter frame)
     on the CPU."""
     if native.get_lib() is None:
@@ -142,35 +157,43 @@ def test_step_matches_plain_on_encode_rows(host_step, encode_rows):
     assert ns == [8, 15, 32, 128], ns
     steps = 0
     for args, want in encode_rows:
-        _assert_bits(_host_loop(host_step, *args), want)
-        steps += int((want[3] - args[4]).sum())
+        got = _host_search(host_step, *args)
+        _assert_same(got, want)
+        steps += int(got[3].sum())
     assert steps > 0  # the loop placed pulses
 
 
 def _random_inputs(n, m, seed, iters=None):
-    """pulse_loop's inputs from _pulse_search's own init on random rows:
-    magnitudes from a small integer set (ties), a tenth of the rows
-    zero, random masked lanes (one row all masked), k from 0..3 and
-    large, distortion scales over decades."""
+    """pulse_search's inputs on random rows: magnitudes from a small
+    integer set (ties), a tenth of the rows zero, a tenth normal with a
+    spread of 40, a fifth up to 32,767 (sums past 2^24), random masked
+    lanes (one row all masked), k from 0..3 and large, distortion scales
+    over decades."""
     rng = np.random.default_rng(seed)
     xc = rng.choice([-3.0, -1.0, 0.0, 1.0, 2.0, 3.0, 7.0], (m, n))
     xc[: m // 10] = 0
     xc[m // 10: m // 5] = rng.normal(0, 40, (m // 5 - m // 10, n)).round()
+    xc[m // 5: 2 * m // 5] = rng.integers(-32767, 32768,
+                                          (2 * m // 5 - m // 5, n))
     k = rng.choice([0, 1, 2, 3, 5, 9, 40, n + 20], m)
     g2 = 10.0 ** rng.uniform(-3, 4, m)
     lane_ok = rng.random((m, n)) > 0.15
     lane_ok[:, 0] |= rng.random(m) > 0.5
     lane_ok[1] = False
+    return (torch.from_numpy(xc.astype(np.float32)), torch.from_numpy(k),
+            torch.from_numpy(g2.astype(np.float32)), 0.147, torch.from_numpy(
+                lane_ok), n + 64 if iters is None else iters)
+
+
+def _loop_inputs(args):
+    """The arguments that pulse_search_plain hands its loop on `args`."""
     cap = []
     mp = pytest.MonkeyPatch()
+    real = PK.pulse_loop_plain
     try:
-        mp.setattr(PS, "pulse_loop",
-                   lambda *a: cap.append(a) or PK.pulse_loop(*a))
-        PS._pulse_search(torch.from_numpy(xc.astype(np.float32)),
-                         torch.from_numpy(k), torch.from_numpy(
-                             g2.astype(np.float32)), 0.147, n,
-                         n + 64 if iters is None else iters,
-                         lane_ok=torch.from_numpy(lane_ok))
+        mp.setattr(PK, "pulse_loop_plain",
+                   lambda *a: cap.append(a) or real(*a))
+        PK.pulse_search_plain(*args)
     finally:
         mp.undo()
     return cap[0]
@@ -181,14 +204,16 @@ def _random_inputs(n, m, seed, iters=None):
 @pytest.mark.parametrize("capped", [False, True])
 def test_step_matches_plain_on_random_rows(host_step, n, m, capped):
     args = _random_inputs(n, m, n + m + capped, iters=3 if capped else None)
-    want = PK.pulse_loop_plain(*args)
-    got = _host_loop(host_step, *args)
-    _assert_bits(got, want)
-    ok = (want[3] >= args[5]).numpy()
+    want = PK.pulse_search_plain(*args)
+    got = _host_search(host_step, *args)
+    _assert_same(got, want)
     if capped:
-        assert not ok.all()  # the cap stopped some rows short
+        assert not want[2].all()  # the cap stopped some rows short
     else:
-        assert ok.all()
+        assert want[2].all()
+    # Sums past 2^24, where their order shows.
+    xx = (args[0].double() ** 2).sum(-1)
+    assert float(xx.max()) > 2 ** 24
 
 
 def test_trip_count(host_step):
@@ -199,12 +224,26 @@ def test_trip_count(host_step):
             min(iters, max(0, int(np.ceil(kf - i))))
 
 
+def test_key_orders_scores(host_step):
+    """ps_key orders every score as torch.argmax compares them: -inf
+    lowest, -0 equal to +0, subnormals and both signs in place."""
+    vals = np.array([-np.inf, -3.4e38, -1.5, -1e-40, -0.0, 0.0, 1e-45,
+                     1e-40, 1.17549435e-38, 0.5, 1.0, 1.0000001, 3.4e38,
+                     np.inf], np.float32)
+    keys = [host_step.pulse_key(float(v)) for v in vals]
+    for a in range(len(vals)):
+        for b in range(len(vals)):
+            assert (keys[a] < keys[b]) == (vals[a] < vals[b])
+            assert (keys[a] == keys[b]) == (vals[a] == vals[b])
+    assert min(keys) > -2 ** 31  # above a lane that holds no element
+
+
 @pytest.mark.parametrize("n", [8, 15, 128])
 def test_row_trip_counts_give_the_batched_result(n):
     """Each row alone through the plain loop (which then runs exactly its
     own trip count) equals the batched loop, which runs the batch's
     largest trip count with finished rows frozen."""
-    args = _random_inputs(n, 80, 7 * n)
+    args = _loop_inputs(_random_inputs(n, 80, 7 * n))
     need = torch.ceil(args[5] - args[4]).clamp_min(0)
     assert int(need.min()) == 0 and int(need.max()) > 3  # trips differ
     batch = PK.pulse_loop_plain(*args)
@@ -217,12 +256,16 @@ def test_row_trip_counts_give_the_batched_result(n):
 
 def test_wrapper_runs_plain_on_cpu_and_raises_elsewhere():
     args = _random_inputs(15, 50, 3)
-    for g, w in zip(PK.pulse_loop(*args), PK.pulse_loop_plain(*args)):
+    got, want = PK.pulse_search(*args), PK.pulse_search_plain(*args)
+    assert torch.isnan(want[1]).any()  # an all-zero row with k > 0
+    for g, w in zip(got, want):
+        if g.is_floating_point():  # NaN too, by its bits
+            g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w)
     meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
     with pytest.raises(ValueError, match="unsupported device"):
-        PK.pulse_loop(*meta)
+        PK.pulse_search(*meta)
     bad = list(args)
-    bad[1] = args[1].double()
-    with pytest.raises(ValueError, match="yp"):
-        PK.pulse_loop(*bad)
+    bad[2] = args[2].double()
+    with pytest.raises(ValueError, match="g2"):
+        PK.pulse_search(*bad)

@@ -616,8 +616,9 @@ def test_lean_tier_1080p_matches_jax():
     the CPU: daala_tpu's host search, its JAX lean tier
     (use_device_pvq) and the port's lean tier.  At every search_frame
     call of the port's run, JAX's search_frame on the same planes gives
-    the same table on at least 99% of rows; the port's bytes are within
-    0.1% of JAX's lean tier's and its PSNR within 0.01 dB.  Prints each
+    the same table on every row (the pulse search sums its rows in
+    XLA:CPU's order; with torch.sum's order one keyframe row of 53,912
+    differed); the port's bytes are within 0.1% of JAX's lean tier's and its PSNR within 0.01 dB.  Prints each
     run's bytes and luma PSNR per frame (several minutes: JAX's search
     of a 1080p frame on the CPU takes about a minute)."""
     from daala_tpu.codec.decoder import Decoder as HostDecoder
@@ -677,7 +678,7 @@ def test_lean_tier_1080p_matches_jax():
     finally:
         PS.search_frame = real
     assert len(agree) == len(frames)
-    assert all(same >= 0.99 * total for same, total in agree), agree
+    assert all(same == total for same, total in agree), agree
     nb, ps = runs["port"]
     nb_j, ps_j = runs["JAX lean tier"]
     assert abs(nb - nb_j) <= 0.001 * nb_j and abs(ps - ps_j) < 0.01
