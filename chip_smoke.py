@@ -17,8 +17,9 @@ Phases, each printing its lines; any failure raises and exits nonzero:
 
 1. Environment: the card's name and power limit (nvidia-smi), its
    maximum SM clock, torch and CUDA versions; builds the port's native
-   host engine and the five CUDA sources (lap_frame, dct_frame,
-   obmc_leaf, pulse_search, sad_fields; into build/, first use only,
+   host engine and the six CUDA sources (lap_frame, dct_frame,
+   obmc_leaf, pulse_search, band_search, sad_fields; into build/, first
+   use only,
    all nvcc runs at once) and prints each build's seconds and ptxas's
    registers, stack and spills of every kernel instantiation, and, as
    information, the card's vabsdiff4 issue rate (a probe kernel of
@@ -57,7 +58,10 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    models/pvqsearch.py _pulse_search) against the whole plain search on
    the arguments of every band_search call of phase 3c's traced keyframe
    and first inter frame (each band length; each call's longest trip
-   count printed beside its time), and sad_fields (csrc/sad_fields.cu,
+   count printed beside its time), band_prologue and band_epilogue
+   (csrc/band_search.cu, the rest of band_search before and after its
+   pulse search) against band_prologue_plain and band_epilogue_plain on
+   the same calls' arguments, and sad_fields (csrc/sad_fields.cu,
    the SAD fields of models/mefield.py) on the 1080p translation pair
    at r = 16, as one tile and as the 2 x 2 tiles of phase 9's mesh.
 2c. Device OBMC prediction: models/obmc.py predict_frame_plane_device on
@@ -83,8 +87,10 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    search, byte-identical to daala_tpu's host encoder) and its bytes
    within -10% / +5% of phase 3's (on this clip the lean search, like
    JAX's, codes the inter frames about 6% smaller than the host
-   search); lap_frame, dct_frame, pulse_search and sad_fields launched;
-   every band_search call ran on the card; under half of phase 3's
+   search); lap_frame, dct_frame, pulse_search, band_prologue,
+   band_epilogue and sad_fields launched; every band_search call ran on
+   the card and launched band_prologue, pulse_search and band_epilogue
+   once each (devstats, printed); under half of phase 3's
    device->host bytes.  Prints
    its devstats, Mpix/s, the search_frame and SAD-field spans, the rows
    the search marked invalid (searched on the host), and, from
@@ -202,7 +208,8 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    clips, two runs each) and `python -m
    daala_tpu_torch.utils.bench_scaling` at its defaults.  Every probe
    is a measurement, not an error, with lap_frame, dct_frame and
-   sad_fields launched in it (pulse_search in the lean tier's two,
+   sad_fields launched in it (pulse_search, band_prologue and
+   band_epilogue in the lean tier's two,
    obmc_leaf_cells in device+sweep's); the headline
    is above 0 with both clips; the translation clip's bytes equal the
    checked encode of the chosen configuration (phase 3, 3c or 4c's
@@ -230,7 +237,8 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    --seek decode is the full decode from frame 6 on.  Prints each
    mode's walls.
 5. A line of JSON with each kernel's route, source, launches (lap_frame,
-   dct_frame and sad_fields from phase 3, pulse_search from phase 3c,
+   dct_frame and sad_fields from phase 3, pulse_search, band_prologue
+   and band_epilogue from phase 3c,
    obmc_blend from phase 2c, obmc_leaf_cells from phase 4b) and, beside
    them, its launches in phase 3 ("analysis_launches"), 3c
    ("lean_launches"), 4b ("sweep_launches"), in
@@ -593,9 +601,9 @@ def phase_environment(torch):
              RATES["bytes_per_s"]))
     from concurrent.futures import ThreadPoolExecutor
     from daala_tpu_torch import native
-    from daala_tpu_torch.ops.cuda import (_build, dct_kernels, lap_kernels,
-                                          obmc_kernels, pulse_kernels,
-                                          sad_kernels)
+    from daala_tpu_torch.ops.cuda import (_build, band_kernels, dct_kernels,
+                                          lap_kernels, obmc_kernels,
+                                          pulse_kernels, sad_kernels)
     from daala_tpu_torch.utils import devstats
 
     def native_lib():
@@ -605,14 +613,16 @@ def phase_environment(torch):
     # g++ and one nvcc per source, all at once; map() re-raises a failure.
     t0 = time.perf_counter()
     builds = (native_lib, lap_kernels.build, dct_kernels.build,
-              obmc_kernels.build, pulse_kernels.build, sad_kernels.build)
+              obmc_kernels.build, pulse_kernels.build, band_kernels.build,
+              sad_kernels.build)
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda f: f(), builds))
-    print("build: native engine, %s.cu, %s.cu, %s.cu, %s.cu and %s.cu ready "
-          "in %.1f s, in parallel; nvcc (sm_90a) seconds of the sources "
-          "built now (none if build/ held them): %s"
+    print("build: native engine, %s.cu, %s.cu, %s.cu, %s.cu, %s.cu and %s.cu "
+          "ready in %.1f s, in parallel; nvcc (sm_90a) seconds of the "
+          "sources built now (none if build/ held them): %s"
           % (lap_kernels.NAME, dct_kernels.NAME, obmc_kernels.SOURCE,
-             pulse_kernels.NAME, sad_kernels.NAME, time.perf_counter() - t0,
+             pulse_kernels.NAME, band_kernels.NAME, sad_kernels.NAME,
+             time.perf_counter() - t0,
              {k: round(v, 1) for k, v in devstats.BUILDS.items()}))
     for src, text in sorted(_build.PTXAS.items()):
         for fn, regs, stack, st, ld in _build.ptxas_report(text):
@@ -1197,15 +1207,21 @@ def phase_encoder(torch, dev):
 
 def _watch_band_search(calls):
     """Replace pvqsearch.band_search by a wrapper that appends (n, rows,
-    input device, output device) of every call to `calls`; returns the
-    function that restores it."""
+    input device, output device, the kernel launches that devstats
+    counted in the call) of every call to `calls`; returns the function
+    that restores it."""
     from daala_tpu_torch.models import pvqsearch as PS
+    from daala_tpu_torch.utils import devstats
     real = PS.band_search
 
     def watched(*args, **kw):
+        before = dict(devstats.snapshot()["launches"])
         out = real(*args, **kw)
+        after = devstats.snapshot()["launches"]
         calls.append((args[9], int(args[2].shape[0]), args[0].device.type,
-                      out[0].device.type))
+                      out[0].device.type,
+                      {k: v - before.get(k, 0) for k, v in after.items()
+                       if v != before.get(k, 0)}))
         return out
     PS.band_search = watched
 
@@ -1232,13 +1248,81 @@ def watch_pulse_search(calls):
     return restore
 
 
+def watch_band_kernels(calls):
+    """Replace pvqsearch.band_prologue and band_epilogue by wrappers that
+    append ("band_prologue" or "band_epilogue", its arguments) to `calls`
+    (the tensors themselves: nothing writes them after the call); returns
+    the function that restores them."""
+    from daala_tpu_torch.models import pvqsearch as PS
+    real = {name: getattr(PS, name) for name in ("band_prologue",
+                                                 "band_epilogue")}
+
+    def wrap(name):
+        def watched(*args):
+            calls.append((name, args))
+            return real[name](*args)
+        return watched
+    for name in real:
+        setattr(PS, name, wrap(name))
+
+    def restore():
+        for name, fn in real.items():
+            setattr(PS, name, fn)
+    return restore
+
+
+def band_work(name, args):
+    """(bytes, ops) of band_prologue or band_epilogue on its arguments,
+    operations as int32-lane operations counted from the code
+    (csrc/band_row.cuh), a least count.
+
+    The prologue reads each row's n gathered coefficients (and, inter,
+    reference coefficients) and its descriptors (base, table id,
+    quantizer, beta: 13 bytes) once, the gather and QM tables once, and
+    writes the distinct pulse-search rows (n float32: inter the
+    reflected row and x16, keyframe x16), the C candidates' 11 fields
+    (44 bytes) and the row's 3 (12 bytes).  The lane flags and each
+    candidate's row index follow from the candidate, n and m, so they
+    are not counted.  Operations: per lane 12 (the gather's add and
+    compares, the QM product and shift, the squares and their sums)
+    and, inter, 24 more (the reference's, the correlation, the argmax,
+    the reflection's product, shift and wrap, the deletion); per
+    pulse-search row n (the conversions it writes); per candidate 60
+    (the fixed-point theta, k and gain chains and the distortion
+    gate).
+
+    The epilogue reads the C candidates' pulses (n int32), cos_dist and
+    ok (5 bytes), their 11 fields (44 bytes), the row's 3 fields, the
+    CDF and node tables once, and writes 6 int32, n int16 and a float32
+    a row.  Operations: per candidate 3 n (|y|, the prefix sums) and 8
+    per node of its split tree (2 n - 1 nodes: the span's count, the
+    termination and blocked flags, the node's kind), a floor that leaves
+    out the costs of the active nodes and the selection."""
+    if name == "band_prologue":
+        dflat, _, base, _, tab, qmtab, _, _, _, n, kf = args
+        m, T = base.shape[0], tab.shape[0]
+        C, G = (2, 1) if kf else (14, 2)
+        nbytes = (m * n * 4 * G + 13 * m + 8 * T * n + G * m * n * 4
+                  + 44 * C * m + 12 * m)
+        ops = m * n * (12 if kf else 36) + G * m * n + C * m * 60
+        return nbytes, int(ops)
+    y_c, _, _, cf, ci, rf, _, n, k1, sp, kf = args
+    C, m = ci.shape[1:]
+    tables = (k1.numel() + sp.numel()) * 4 if k1 is not None else 0
+    nbytes = (C * m * (n * 4 + 5 + 44) + 12 * m + tables
+              + 24 * (4 * n - 4) + m * (24 + 2 * n + 4))
+    ops = C * m * (3 * n + 8 * (2 * n - 1))
+    return nbytes, int(ops)
+
+
 def pulse_work(args):
     """(bytes, ops, "flops_per_s", longest trip count) of pulse_search on
-    its arguments `args` (xc, k, g2, lam, lane_ok, iters).
+    its arguments `args` (xc, k, g2, lam, lane_ok, iters[, src]).
 
-    Bytes: xc (float32) and lane_ok (bool) of every lane and k and g2 of
-    every row read once, the two tables read once, y (int32) of every
-    lane and cos_dist and ok of every row written once.
+    Bytes: xc (float32) and lane_ok (bool) of every lane of their rows,
+    and k, g2 and src (when given) of every searched row, read once, the
+    two tables read once, y (int32) of every lane and cos_dist and ok of
+    every searched row written once.
 
     Operations: float32 operations from the code, a fused multiply-add
     counted as 2.  The prologue: per lane 17 (the magnitude; x.x, |x|_1,
@@ -1259,8 +1343,11 @@ def pulse_work(args):
     version's loop arguments on these inputs."""
     from daala_tpu_torch.ops.cuda import pulse_kernels as PK
     xc, k, iters = args[0], args[1], args[5]
-    m, n = xc.shape
-    nbytes = m * n * 5 + m * 8 + 16 * 4 + 2048 * 4 + m * n * 4 + m * 5
+    src = args[6] if len(args) > 6 else None
+    rows, n = xc.shape
+    m = k.shape[0]
+    nbytes = (rows * n * 5 + m * (8 if src is None else 12) + 16 * 4
+              + 2048 * 4 + m * n * 4 + m * 5)
     loop = []
     real = PK.pulse_loop_plain
     PK.pulse_loop_plain = lambda *a: loop.append(a) or real(*a)
@@ -1320,9 +1407,9 @@ def lean_encoder(info, device, **kw):
 
 def phase_lean(torch, dev, ref):
     """Phase 3c against phase 3's results `ref`; returns its bytes, its
-    launches and, labelled by frame, the arguments of every pulse_search
-    call of its trace's keyframe and inter frame (one per band_search
-    call)."""
+    launches and, labelled by frame, the arguments of every pulse_search,
+    band_prologue and band_epilogue call of its trace's keyframe and
+    inter frame (one each per band_search call)."""
     from daala_tpu_torch.codec import headers
     from daala_tpu_torch.utils import devstats
     from daala_tpu_torch.utils.profile import (ENCODER_KW as kw, H,
@@ -1370,10 +1457,17 @@ def phase_lean(torch, dev, ref):
             raise AssertionError("lean PSNR %.4f not within 0.3 dB of %.4f"
                                  % (psnr, ref["psnr"]))
         for name in ("lap_frame", "dct_frame", "pulse_search",
-                     "sad_fields"):
+                     "band_prologue", "band_epilogue", "sad_fields"):
             if snap["launches"].get(name, 0) <= 0:
                 raise AssertionError("%s never launched in the lean tier"
                                      % name)
+        per_call = {json.dumps(c[4], sort_keys=True) for c in calls}
+        print("lean: kernel launches per band_search call (devstats), over "
+              "its %d calls: %s" % (len(calls), sorted(per_call)))
+        if per_call != {json.dumps({"band_epilogue": 1, "band_prologue": 1,
+                                    "pulse_search": 1}, sort_keys=True)}:
+            raise AssertionError("band_search did not run its three kernels "
+                                 "once a call: %s" % sorted(per_call))
         if not snap["d2h_bytes"] < 0.5 * ref["d2h_bytes"]:
             raise AssertionError("lean d2h %d bytes not under half of %d"
                                  % (snap["d2h_bytes"], ref["d2h_bytes"]))
@@ -1383,11 +1477,13 @@ def phase_lean(torch, dev, ref):
         # band length and rows.
         del calls[:]
         os.makedirs(BUILD, exist_ok=True)
-        pulse = []
+        pulse, band = [], []
         stop = watch_pulse_search(pulse)
+        stop_band = watch_band_kernels(band)
         try:
             res = traced(frames, dev, BUILD, False, lean=True)
         finally:
+            stop_band()
             stop()
         work = [dict(frame=label, **w) for label in ("keyframe", "inter")
                 for w in res[label]["band_search"]]
@@ -1397,15 +1493,19 @@ def phase_lean(torch, dev, ref):
             print("lean trace: %d band_search ranges for %d calls; "
                   "launches per call not read" % (len(work), len(calls)))
             work = []
-        for (n, rows, _, _), w in zip(calls, work):
+        for (n, rows, _, _, _), w in zip(calls, work):
             print("lean trace %s: band_search n=%d, %d rows: %d launches, "
                   "device %.3f ms, host wall %.3f ms"
                   % (w["frame"], n, rows, w["launches"], w["device_ms"],
                      w["wall_ms"]))
     finally:
         restore()
+    band_labels = [lab for lab in labels for _ in range(2)]
+    if len(band) != len(band_labels):
+        band_labels = ["call %d" % (k // 2) for k in range(len(band))]
     return dict(bytes=nbytes, launches=snap["launches"],
-                pulse_calls=list(zip(labels, pulse)))
+                pulse_calls=list(zip(labels, pulse)),
+                band_calls=[(lab,) + c for lab, c in zip(band_labels, band)])
 
 
 def phase_fields(torch, dev):
@@ -1433,16 +1533,28 @@ def phase_fields(torch, dev):
           % (out["cpu"].shape, dev, out[str(dev) + "_s"], out["cpu_s"]))
 
 
-def phase_search_kernels(torch, dev, res, pulse_calls):
-    """Phase 2d: pulse_search on the arguments of phase 3c's traced
-    band_search calls (`pulse_calls`, labelled), and sad_fields on the
-    1080p translation pair, as one tile and as the 2 x 2 tiles of phase
-    9's mesh, against their plain versions on the card."""
+def phase_search_kernels(torch, dev, res, pulse_calls, band_calls):
+    """Phase 2d: pulse_search, band_prologue and band_epilogue on the
+    arguments of phase 3c's traced band_search calls (`pulse_calls`,
+    `band_calls`, labelled), and sad_fields on the 1080p translation
+    pair, as one tile and as the 2 x 2 tiles of phase 9's mesh, against
+    their plain versions on the card."""
+    from daala_tpu_torch.ops.cuda import band_kernels as BK
     from daala_tpu_torch.ops.cuda import pulse_kernels as PK
-    if not pulse_calls:
-        raise AssertionError("phase 3c captured no pulse_search call")
+    if not pulse_calls or not band_calls:
+        raise AssertionError("phase 3c captured no pulse_search or band "
+                             "kernel call")
+    for label, name, args in band_calls:
+        kern, plain = ((BK.band_prologue_cuda, BK.band_prologue_plain)
+                       if name == "band_prologue" else
+                       (BK.band_epilogue_cuda, BK.band_epilogue_plain))
+        n = args[9] if name == "band_prologue" else args[7]
+        m = (args[2] if name == "band_prologue" else args[5]).shape[-1]
+        record(torch, res, name, "%s %s n=%d, %d rows" % (name, label, n, m),
+               lambda: kern(*args), lambda: plain(*args),
+               band_work(name, args), BK.KERNELS)
     for label, args in pulse_calls:
-        m, n = args[0].shape
+        n, m = args[0].shape[1], args[1].shape[0]
         nbytes, ops, rate, trips = pulse_work(args)
         record(torch, res, PK.KERNEL, "pulse_search %s n=%d, %d rows, "
                "longest %d trips" % (label, n, m, trips),
@@ -2362,7 +2474,8 @@ def phase_bench(torch, dev, checked):
             raise AssertionError("bench probe %s: %s" % (name, probe))
         need = ("lap_frame", "dct_frame", "sad_fields") + (
             ("obmc_leaf_cells",) if name == "device+sweep" else ()) + (
-            ("pulse_search",) if name != "analysis" else ())
+            ("pulse_search", "band_prologue", "band_epilogue")
+            if name != "analysis" else ())
         for k in need:
             if probe["dev"]["launches"].get(k, 0) <= 0:
                 raise AssertionError("bench probe %s: %s never launched"
@@ -2642,8 +2755,8 @@ def kernel_line(kern, launches, phases):
     """The kernels line: each kernel's launches on its main path
     ("launches": lap_frame and dct_frame in phase 3's encode, obmc_blend
     in phase 2c, obmc_leaf_cells in phase 4's 1080p sweep encode,
-    sad_fields in phase 3's encode, pulse_search in phase 3c's lean
-    encode) and, under each key of `phases`, its launches in that run:
+    sad_fields in phase 3's encode, pulse_search, band_prologue and
+    band_epilogue in phase 3c's lean encode) and, under each key of `phases`, its launches in that run:
     phase 3's analysis-tier encode ("analysis_launches"), phase 3c's
     lean encode ("lean_launches"), phase 4's 1080p sweep encode
     ("sweep_launches"), phase 6's decode, the batched phases 7a-7b (both
@@ -2658,8 +2771,9 @@ def kernel_line(kern, launches, phases):
     kernels' device time per call in the trace ("device_ms"), the plain
     version's, and the bounds; "bound_by" names what bounds the larger
     part of bound_ms.  No single PyTorch call computes any of these
-    functions, so library_ms is null.  pulse_search and sad_fields replace
-    functions that JAX computes in XLA, not in Pallas."""
+    functions, so library_ms is null.  pulse_search, band_prologue,
+    band_epilogue and sad_fields replace functions that JAX computes in
+    XLA, not in Pallas."""
     pallas = "daala_tpu/ops/pallas/"
     sources = {
         "lap_frame": ("lap_frame.cu", pallas + "lap_kernels.py:78"),
@@ -2668,6 +2782,12 @@ def kernel_line(kern, launches, phases):
         "obmc_leaf_cells": ("obmc_leaf.cu", pallas + "obmc_kernels.py:208"),
         "pulse_search": ("pulse_search.cu", "daala_tpu/models/pvqsearch.py:"
                          "318 _pulse_search (XLA in JAX)"),
+        "band_prologue": ("band_search.cu", "daala_tpu/models/pvqsearch.py:"
+                          "562 band_search before its pulse search (XLA in "
+                          "JAX)"),
+        "band_epilogue": ("band_search.cu", "daala_tpu/models/pvqsearch.py:"
+                          "562 band_search after its pulse search (XLA in "
+                          "JAX)"),
         "sad_fields": ("sad_fields.cu", "daala_tpu/models/mefield.py:42"
                        " _fullpel_fields (XLA in JAX)"),
     }
@@ -2738,8 +2858,10 @@ def main(argv=None):
     lean = run("3c", phase_lean, torch, dev, ref)
     checked["device"] = lean["bytes"]
     launches["pulse_search"] = lean["launches"].get("pulse_search", 0)
+    for name in ("band_prologue", "band_epilogue"):
+        launches[name] = lean["launches"].get(name, 0)
     run("2d", phase_search_kernels, torch, dev, kern,
-        lean.pop("pulse_calls"))
+        lean.pop("pulse_calls"), lean.pop("band_calls"))
     run("3d", phase_fields, torch, dev)
     run("3e", phase_dering_candidates, torch, dev)
     sweep_launches = run("4", phase_sweep, torch, dev)

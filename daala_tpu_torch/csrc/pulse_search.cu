@@ -40,6 +40,9 @@
 // - Every float operation is the plain version's, in its association,
 //   through csrc/pulse_step.cuh, so the kernel equals the plain version
 //   bit for bit; _rsqrt's zero-gives-inf is carried into cos_dist.
+// - A row may search another row of xc and lane_ok (src): band_search's
+//   14 candidates of a row search 2 distinct rows, which its prologue
+//   writes once each.
 // Nothing is read back to the host.
 
 #include <cuda_runtime.h>
@@ -61,7 +64,7 @@ template <int G, int PER>
 __global__ void __launch_bounds__(WARPS * 32) pulse_search_kernel(
     const float *__restrict__ xc, const int32_t *__restrict__ kin,
     const float *__restrict__ g2in, const uint8_t *__restrict__ lane_ok,
-    const float *__restrict__ rsq16, const int32_t *__restrict__ seed,
+    const int32_t *__restrict__ src, const float *__restrict__ rsq16, const int32_t *__restrict__ seed,
     int32_t *__restrict__ y_out, float *__restrict__ cos_out,
     uint8_t *__restrict__ ok_out, int m, int n, int iters, float lam,
     float d0, float a0, float d1, float a1) {
@@ -83,6 +86,8 @@ __global__ void __launch_bounds__(WARPS * 32) pulse_search_kernel(
   const int row = blockIdx.x * RB + rb;
   const bool live = row < m;  // the rest only meet the block's barriers
   const size_t base = (size_t)row * n;
+  // The row's lanes and lane flags: row src[row] of xc and lane_ok.
+  const size_t xbase = src != nullptr && live ? (size_t)src[row] * n : base;
   const int32_t k = live ? kin[row] : 0;
   const float kf = (float)k;
   float xr[PER], yr[PER];
@@ -90,8 +95,8 @@ __global__ void __launch_bounds__(WARPS * 32) pulse_search_kernel(
 #pragma unroll
   for (int q = 0; q < PER; q++) {
     const int j = gl + G * q;
-    okr[q] = live && j < n && lane_ok[base + j];
-    const float v = okr[q] ? xc[base + j] : 0.0f;
+    okr[q] = live && j < n && lane_ok[xbase + j];
+    const float v = okr[q] ? xc[xbase + j] : 0.0f;
     neg[q] = v < 0.0f;
     xr[q] = fabsf(v);
     xs[rb * RS + q * CH + gl] = xr[q];
@@ -213,6 +218,7 @@ struct Args {
   const int32_t *k;
   const float *g2;
   const uint8_t *lane_ok;
+  const int32_t *src;
   const float *rsq16;
   const int32_t *seed;
   int32_t *y;
@@ -226,7 +232,7 @@ template <int G, int PER>
 cudaError_t launch(const Args &a, cudaStream_t s) {
   const int rows = WARPS * (32 / G);  // rows a block
   pulse_search_kernel<G, PER><<<(a.m + rows - 1) / rows, WARPS * 32, 0, s>>>(
-      a.xc, a.k, a.g2, a.lane_ok, a.rsq16, a.seed, a.y, a.cos_dist, a.ok,
+      a.xc, a.k, a.g2, a.lane_ok, a.src, a.rsq16, a.seed, a.y, a.cos_dist, a.ok,
       a.m, a.n, a.iters, a.lam, a.d0, a.a0, a.d1, a.a1);
   return cudaGetLastError();
 }
@@ -234,12 +240,15 @@ cudaError_t launch(const Args &a, cudaStream_t s) {
 }  // namespace
 
 // xc: (m, n) float32; k: (m,) int32; g2: (m,) float32; lane_ok: (m, n)
-// bytes (bool); rsq16: 16 float32; seed: 2048 int32.  Writes y (m, n)
+// bytes (bool); src: null, or (m,) int32, and then row r searches row
+// src[r] of xc and lane_ok, which may hold any number of rows; rsq16: 16
+// float32; seed: 2048 int32.  Writes y (m, n)
 // int32, cos_dist (m,) float32 and ok (m,) bytes (bool).  lam and the
 // rate constants (d0, a0 for k != 1, d1, a1 for k = 1) are float32.
 // 1 <= n <= 512, m >= 1.
 extern "C" int pulse_search(const void *xc, const void *k, const void *g2,
-                            const void *lane_ok, const void *rsq16,
+                            const void *lane_ok, const void *src,
+                            const void *rsq16,
                             const void *seed, void *y, void *cos_dist,
                             void *ok, int m, int n, int iters, float lam,
                             float d0, float a0, float d1, float a1,
@@ -248,7 +257,7 @@ extern "C" int pulse_search(const void *xc, const void *k, const void *g2,
     return (int)cudaErrorInvalidValue;
   const Args a{(const float *)xc,      (const int32_t *)k,
                (const float *)g2,      (const uint8_t *)lane_ok,
-               (const float *)rsq16,   (const int32_t *)seed,
+               (const int32_t *)src,   (const float *)rsq16,   (const int32_t *)seed,
                (int32_t *)y,           (float *)cos_dist,
                (uint8_t *)ok,          m,
                n,                      iters,

@@ -161,10 +161,11 @@ PS_HD float ps_init_pulses(int32_t k, float kf, float x, float l1) {
   return v < 0.0f ? 0.0f : v;
 }
 
-// The rate penalty of lane j: (lamr j) (delta + j accel).
+// The rate penalty of lane j: (lamr j) fma(j, accel, delta), the
+// contraction XLA:CPU makes of delta + j accel.
 PS_HD float ps_rate_pen(float lamr, int j, float delta, float accel) {
   const float fj = (float)j;
-  return ps_mul(ps_mul(lamr, fj), ps_add(delta, ps_mul(fj, accel)));
+  return ps_mul(ps_mul(lamr, fj), ps_fma32(fj, accel, delta));
 }
 
 // An int32 key with the order of the scores (-0 taken as +0, which torch's

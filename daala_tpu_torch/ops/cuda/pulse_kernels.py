@@ -44,7 +44,7 @@ KERNELS = ("pulse_search_kernel",)  # the source's __global__ functions
 MAX_N = 512  # the widest row the kernel takes (32 lanes x 16 registers)
 CHUNK = 32  # XLA:CPU sums rows longer than this in chunks of this many
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 9 + [_I] * 3 + [_F] * 5 + [_P]
+_ARGTYPES = [_P] * 10 + [_I] * 3 + [_F] * 5 + [_P]
 
 _RSQRT16 = (1.000000, 0.707107, 0.577350, 0.500000, 0.447214, 0.408248,
             0.377964, 0.353553, 0.333333, 0.316228, 0.301511, 0.288675,
@@ -69,12 +69,14 @@ def _rsqrt_seed(device):
 
 
 def _fma32(a, b, c):
-    """The fused multiply-add a * b + c of float32 tensors (c may be a
-    float): the product is exact in float64, so the result is rounded
-    once to float32 wherever the float64 sum is exact, and otherwise
-    differs from one rounding only where that sum lands on a float32
-    midpoint (about one case in 2^29)."""
-    return (a.double() * b.double() + c).float()
+    """The fused multiply-add a * b + c of float32 tensors (b and c may be
+    floats that are float32 values): the product is exact in float64, so
+    the result is rounded once to float32 wherever the float64 sum is
+    exact, and otherwise differs from one rounding only where that sum
+    lands on a float32 midpoint (about one case in 2^29)."""
+    b = b.double() if torch.is_tensor(b) else b
+    c = c.double() if torch.is_tensor(c) else c
+    return (a.double() * b + c).float()
 
 
 def _rsqrt(x):
@@ -181,9 +183,11 @@ def pulse_loop_plain(x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen,
     return yp, xy, yy, i
 
 
-def pulse_search_plain(xc, k, g2, lam, lane_ok, iters):
+def pulse_search_plain(xc, k, g2, lam, lane_ok, iters, src=None):
     """The plain PyTorch version: what the kernel computes.  Returns (y
     signed (m, n) int32, cos_dist (m,) float32, ok (m,) bool)."""
+    if src is not None:
+        xc, lane_ok = xc[src.long()], lane_ok[src.long()]
     n = xc.shape[1]
     xc = torch.where(lane_ok, xc, 0.0)
     x = xc.abs()
@@ -205,8 +209,9 @@ def pulse_search_plain(xc, k, g2, lam, lane_ok, iters):
     delta_rate = torch.where(k == 1, float(delta1), float(delta)).float()
     accel_rate = torch.where(k == 1, float(accel1), float(accel)).float()
     jidx = torch.arange(n, dtype=torch.float32, device=xc.device)
-    rate_pen = (lamr[:, None] * jidx[None, :]
-                * (delta_rate[:, None] + jidx[None, :] * accel_rate[:, None]))
+    # XLA:CPU contracts delta + j accel into one fused multiply-add.
+    rate_pen = (lamr[:, None] * jidx[None, :]) * _fma32(
+        jidx[None, :], accel_rate[:, None], delta_rate[:, None])
     yp, xy, yy, i = pulse_loop_plain(x, yp, xy, yy, i, kf, rdo_pulses,
                                      norm_1, rate_pen, lane_ok, iters)
     ok = i >= kf
@@ -217,18 +222,22 @@ def pulse_search_plain(xc, k, g2, lam, lane_ok, iters):
     return y, cos_dist, ok
 
 
-def _check(xc, k, g2, lane_ok, iters):
+def _check(xc, k, g2, lane_ok, iters, src):
     if xc.dim() != 2 or xc.dtype != torch.float32:
         raise ValueError("pulse_search takes (m, n) float32 rows, got %s %s"
                          % (xc.dtype, tuple(xc.shape)))
-    m, n = xc.shape
+    s, n = xc.shape
     if n == 0:
         raise ValueError("pulse_search takes rows of at least one lane")
-    for name, t, shape, ok in (
-            ("k", k, (m,), not k.is_floating_point() and not k.is_complex()
-             and k.dtype != torch.bool),
-            ("g2", g2, (m,), g2.dtype == torch.float32),
-            ("lane_ok", lane_ok, (m, n), lane_ok.dtype == torch.bool)):
+    m = s if src is None else src.shape[0]
+    checks = [
+        ("k", k, (m,), not k.is_floating_point() and not k.is_complex()
+         and k.dtype != torch.bool),
+        ("g2", g2, (m,), g2.dtype == torch.float32),
+        ("lane_ok", lane_ok, (s, n), lane_ok.dtype == torch.bool)]
+    if src is not None:
+        checks.append(("src", src, (m,), src.dtype == torch.int32))
+    for name, t, shape, ok in checks:
         if tuple(t.shape) != shape or not ok:
             raise ValueError("pulse_search: %s is %s %s, wants %s"
                              % (name, t.dtype, tuple(t.shape), shape))
@@ -245,18 +254,20 @@ def build():
     return _build.load(NAME, {NAME: _ARGTYPES})
 
 
-def pulse_search_cuda(xc, k, g2, lam, lane_ok, iters):
+def pulse_search_cuda(xc, k, g2, lam, lane_ok, iters, src=None):
     """Launch csrc/pulse_search.cu on CUDA tensors; returns new tensors
     (y, cos_dist, ok)."""
-    _check(xc, k, g2, lane_ok, iters)
+    _check(xc, k, g2, lane_ok, iters, src)
     if xc.device.type != "cuda":
         raise ValueError("pulse_search_cuda takes CUDA tensors")
-    m, n = xc.shape
+    n = xc.shape[1]
+    m = k.shape[0]
     if n > MAX_N:
         raise ValueError("pulse_search_cuda takes rows of at most %d lanes,"
                          " got %d" % (MAX_N, n))
     ins = [xc.contiguous(), k.to(torch.int32).contiguous(),
            g2.contiguous(), lane_ok.contiguous()]
+    src_c = None if src is None else src.contiguous()
     y = torch.empty((m, n), dtype=torch.int32, device=xc.device)
     cos_dist = torch.empty((m,), dtype=torch.float32, device=xc.device)
     ok = torch.empty((m,), dtype=torch.bool, device=xc.device)
@@ -266,7 +277,9 @@ def pulse_search_cuda(xc, k, g2, lam, lane_ok, iters):
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
         err = lib.pulse_search(
-            *[t.data_ptr() for t in ins], _rsqrt16(xc.device).data_ptr(),
+            *[t.data_ptr() for t in ins],
+            None if src_c is None else src_c.data_ptr(),
+            _rsqrt16(xc.device).data_ptr(),
             _rsqrt_seed(xc.device).data_ptr(), y.data_ptr(),
             cos_dist.data_ptr(), ok.data_ptr(), m, n, int(iters),
             float(np.float32(lam)), *map(float, rate_constants(n)), stream)
@@ -275,7 +288,7 @@ def pulse_search_cuda(xc, k, g2, lam, lane_ok, iters):
     return y, cos_dist, ok
 
 
-def pulse_search(xc, k, g2, lam, lane_ok, iters):
+def pulse_search(xc, k, g2, lam, lane_ok, iters, src=None):
     """The greedy RDO pulse search over (m, n) rows.
 
     xc: float32 signed coefficients; k: (m,) integer target pulses
@@ -283,13 +296,16 @@ def pulse_search(xc, k, g2, lam, lane_ok, iters):
     g2: (m,) float32 distortion scales; lam: the rate multiplier (a
     host float, rounded to float32); lane_ok: (m, n) bool, the lanes
     that may take a pulse (the others count as zero); iters: the cap on
-    steps.  Returns (y signed (m, n) int32, cos_dist (m,) float32, ok
-    (m,) bool: False when `iters` steps were not enough).  The kernel on
-    CUDA tensors, the plain version on CPU tensors."""
-    args = (xc, k, g2, lam, lane_ok, iters)
+    steps; src: None, or (m,) int32 row indices, and then row r searches
+    row src[r] of xc and lane_ok (which may then hold any number of
+    rows, searched by several rows each).  Returns (y signed (m, n)
+    int32, cos_dist (m,) float32, ok (m,) bool: False when `iters` steps
+    were not enough).  The kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    args = (xc, k, g2, lam, lane_ok, iters, src)
     if xc.device.type == "cuda":
         return pulse_search_cuda(*args)
     if xc.device.type == "cpu":
-        _check(xc, k, g2, lane_ok, iters)
+        _check(xc, k, g2, lane_ok, iters, src)
         return pulse_search_plain(*args)
     raise ValueError("pulse_search: unsupported device %s" % xc.device)

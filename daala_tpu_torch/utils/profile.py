@@ -41,8 +41,9 @@ import time
 import numpy as np
 import torch
 
-from daala_tpu_torch.ops.cuda import (dct_kernels, lap_kernels, obmc_kernels,
-                                      pulse_kernels, sad_kernels)
+from daala_tpu_torch.ops.cuda import (band_kernels, dct_kernels, lap_kernels,
+                                      obmc_kernels, pulse_kernels,
+                                      sad_kernels)
 
 W, H, NFRAMES = 1920, 1080, 4
 # bench.py's production trial-pass preset (bench.py:87-90).
@@ -52,7 +53,7 @@ ENCODER_KW = dict(quant=25, complexity=7, trial_rate_approx=True,
 # each wrapper module lists them).
 HAND_KERNELS = (dct_kernels.KERNELS + lap_kernels.KERNELS
                 + obmc_kernels.KERNELS + pulse_kernels.KERNELS
-                + sad_kernels.KERNELS)
+                + band_kernels.KERNELS + sad_kernels.KERNELS)
 REPS = 2  # timed encodes of the clip after the warm-up
 
 

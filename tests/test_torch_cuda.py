@@ -3,9 +3,9 @@ plain versions at the encoder's 1080p shapes, launch-error reporting,
 the device OBMC predictor against the host's, the encoder on the card
 against the host encoder and (in sweep mode) against itself on the
 CPU, the lean tier's PVQ band search and SAD fields on the card
-against the CPU (and their kernels, csrc/pulse_search.cu and
-csrc/sad_fields.cu, against their plain versions on the card at
-1080p), the lean tier's Python coefficient path on the card against
+against the CPU (and their kernels, csrc/pulse_search.cu,
+csrc/band_search.cu and csrc/sad_fields.cu, against their plain
+versions on the card at 1080p), the lean tier's Python coefficient path on the card against
 its native pass, the decoder's device back end (dering and
 synthesis) on the card against the CPU and the host decoder, the parallel
 encodes (parallel/mesh.py) on the card against the CPU and serial
@@ -490,8 +490,17 @@ def _search_rows(dev, n, m, is_keyframe, seed):
 def test_band_search_on_card_matches_cpu(card, n, m, is_keyframe):
     """The same rows on the card and on the CPU: the integer outputs and
     y equal on at least 99% of rows (the float32 RDO may flip near-ties
-    between the devices), and every output tensor on the card."""
+    between the devices), and every output tensor on the card.  A band
+    wider than the codec's widest (128 lanes), which the band kernels do
+    not take, is refused on the card and searched on the CPU."""
     args = _search_rows(card, n, m, is_keyframe, n + m)
+    if n > 128:
+        with pytest.raises(ValueError, match="bands of 2 to 128 lanes"):
+            PS.band_search(**args)
+        cpu = {k: v.cpu() if torch.is_tensor(v) else v
+               for k, v in args.items()}
+        assert PS.band_search(**cpu)[1].shape == (m, n)
+        return
     got = PS.band_search(**args)
     assert all(o.device.type == "cuda" for o in got)
     cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in args.items()}
@@ -547,8 +556,9 @@ def test_pulse_search_kernel_matches_plain(card, is_keyframe):
     """csrc/pulse_search.cu against pulse_search_plain on the card, bit for
     bit, on _pulse_search's arguments in band_search over
     test_band_search_on_card_matches_cpu's rows at a 1080p frame's row
-    counts (every band length of the codec, and 512): one launch a
-    call."""
+    counts (every band length of the codec, and 512, wider than the band
+    kernels take: its arguments from band_search on the CPU, moved to the
+    card): one launch a call."""
     from chip_smoke import watch_pulse_search
     from daala_tpu_torch.ops.cuda import pulse_kernels as PK
     calls = []
@@ -556,11 +566,13 @@ def test_pulse_search_kernel_matches_plain(card, is_keyframe):
     try:
         for n, m in [(8, 20000), (15, 30000), (32, 8000), (128, 2000),
                      (512, 300)]:
-            PS.band_search(**_search_rows(card, n, m, is_keyframe, n + m))
+            dev = card if n <= 128 else "cpu"
+            PS.band_search(**_search_rows(dev, n, m, is_keyframe, n + m))
     finally:
         restore()
     assert len(calls) == 5
     for args in calls:
+        args = [a.to(card) if torch.is_tensor(a) else a for a in args]
         devstats.reset()
         got = PK.pulse_search(*args)
         assert devstats.snapshot()["launches"] == {PK.KERNEL: 1}
@@ -582,6 +594,104 @@ def test_pulse_search_kernel_on_random_rows(card, n, capped):
                           iters=3 if capped else None)
     args = [a.to(card) if torch.is_tensor(a) else a for a in args]
     _same_bits(PK.pulse_search(*args), PK.pulse_search_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [8, 15, 32, 128])
+def test_pulse_search_kernel_with_row_index(card, n):
+    """The kernel against the plain version on the card when each row
+    searches a row of xc chosen by `src`: 3,000 rows over 700 rows of
+    xc, some taken by many rows, some by none."""
+    from daala_tpu_torch.ops.cuda import pulse_kernels as PK
+    from test_torch_pulse_plan import _random_inputs
+    xc, k, g2, lam, lane_ok, iters = _random_inputs(n, 700, 31 * n)
+    rng = np.random.default_rng(n)
+    src = torch.from_numpy(rng.integers(0, 600, 3000).astype(np.int32))
+    k = torch.from_numpy(rng.choice([0, 1, 2, 3, 5, 9, 40, n + 20], 3000))
+    g2 = torch.from_numpy(rng.uniform(0.1, 4, 3000).astype(np.float32))
+    args = [a.to(card) if torch.is_tensor(a) else a
+            for a in (xc, k, g2, lam, lane_ok, iters, src)]
+    _same_bits(PK.pulse_search(*args), PK.pulse_search_plain(*args))
+    torch.cuda.synchronize()
+
+
+def _band_cases(card, is_keyframe):
+    """_search_rows at a 1080p frame's row counts of every band length,
+    and at two small counts, whose calls take the epilogue's warp a
+    candidate where the large ones take a thread a candidate, with rows
+    whose gathers fall before and past the coefficient buffer."""
+    for n, m in [(8, 20000), (15, 30000), (32, 8000), (128, 2000), (8, 700),
+                 (15, 600)]:
+        args = _search_rows(card, n, m, is_keyframe, n + m)
+        base = args["base"].clone()
+        base[:3] = -2 * n
+        base[-3:] += 5 * n
+        base[3] = -n // 2
+        args["base"] = base
+        yield n, args
+
+
+@pytest.mark.parametrize("is_keyframe", [False, True])
+def test_band_prologue_kernel_matches_plain(card, is_keyframe):
+    """csrc/band_search.cu's prologue against band_prologue_plain on the
+    card, bit for bit in every output: one launch a call."""
+    from daala_tpu_torch.ops.cuda import band_kernels as BK
+    for n, a in _band_cases(card, is_keyframe):
+        args = (a["dflat"], a["mdflat"], a["base"], a["tabsel"], a["tab"],
+                a["qmtab"], a["q0"], a["beta15"], a["lam"], n, is_keyframe)
+        devstats.reset()
+        got = BK.band_prologue(*args)
+        assert devstats.snapshot()["launches"] == {BK.KERNEL_PRO: 1}
+        _same_bits(got, BK.band_prologue_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("is_keyframe", [False, True])
+def test_band_epilogue_kernel_matches_plain(card, is_keyframe):
+    """csrc/band_search.cu's epilogue against band_epilogue_plain on the
+    card, bit for bit, on the prologue's and the pulse search's outputs
+    for those rows, with the CDF tables and (n = 15) the fast rate
+    model: one launch a call."""
+    from daala_tpu_torch.ops.cuda import band_kernels as BK
+    from daala_tpu_torch.ops.cuda import pulse_kernels as PK
+    for n, a in _band_cases(card, is_keyframe):
+        xs, lane_ok, src, cf, ci, rf = BK.band_prologue_plain(
+            a["dflat"], a["mdflat"], a["base"], a["tabsel"], a["tab"],
+            a["qmtab"], a["q0"], a["beta15"], a["lam"], n, is_keyframe)
+        res = PK.pulse_search(xs, ci[5].reshape(-1), cf[0].reshape(-1),
+                              a["lam"], lane_ok, a["iters"], src)
+        tables = [(a["k1_cdf"], a["split_cdf"])]
+        if n == 15:
+            tables.append((None, None))
+        for k1, sp in tables:
+            args = res + (cf, ci, rf, a["lam"], n, k1, sp, is_keyframe)
+            devstats.reset()
+            got = BK.band_epilogue(*args)
+            assert devstats.snapshot()["launches"] == {BK.KERNEL_EPI: 1}
+            _same_bits(got, BK.band_epilogue_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("is_keyframe", [False, True])
+def test_band_search_on_card_is_three_launches(card, is_keyframe):
+    """band_search on the card runs band_prologue, pulse_search and
+    band_epilogue once each, and its result equals the plain versions'
+    chain on the card bit for bit."""
+    from daala_tpu_torch.ops.cuda import band_kernels as BK
+    from daala_tpu_torch.ops.cuda import pulse_kernels as PK
+    a = _search_rows(card, 32, 8000, is_keyframe, 5)
+    devstats.reset()
+    got = PS.band_search(**a)
+    assert devstats.snapshot()["launches"] == {
+        BK.KERNEL_PRO: 1, PK.KERNEL: 1, BK.KERNEL_EPI: 1}
+    xs, lane_ok, src, cf, ci, rf = BK.band_prologue_plain(
+        a["dflat"], a["mdflat"], a["base"], a["tabsel"], a["tab"],
+        a["qmtab"], a["q0"], a["beta15"], a["lam"], 32, is_keyframe)
+    res = PK.pulse_search_plain(xs, ci[5].reshape(-1), cf[0].reshape(-1),
+                                a["lam"], lane_ok, a["iters"], src)
+    _same_bits(got, BK.band_epilogue_plain(
+        *res, cf, ci, rf, a["lam"], 32, a["k1_cdf"], a["split_cdf"],
+        is_keyframe))
     torch.cuda.synchronize()
 
 

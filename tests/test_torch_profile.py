@@ -68,9 +68,9 @@ def test_hand_kernels_name_every_kernel():
     import glob
     import os
     from chip_smoke import global_names
-    from daala_tpu_torch.ops.cuda import (dct_kernels, lap_kernels,
-                                          obmc_kernels, pulse_kernels,
-                                          sad_kernels)
+    from daala_tpu_torch.ops.cuda import (band_kernels, dct_kernels,
+                                          lap_kernels, obmc_kernels,
+                                          pulse_kernels, sad_kernels)
     from daala_tpu_torch.utils.profile import HAND_KERNELS
     csrc = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "daala_tpu_torch", "csrc")
@@ -81,7 +81,7 @@ def test_hand_kernels_name_every_kernel():
     assert all(any(k in n for k in HAND_KERNELS) for n in names), names
     listed = (dct_kernels.KERNELS + lap_kernels.KERNELS
               + obmc_kernels.KERNELS + pulse_kernels.KERNELS
-              + sad_kernels.KERNELS)
+              + band_kernels.KERNELS + sad_kernels.KERNELS)
     assert set(listed) == names
 
 

@@ -83,9 +83,11 @@ def host_step(tmp_path_factory):
     return lib
 
 
-def _host_search(lib, xc, k, g2, lam, lane_ok, iters):
-    """The header's whole search over every row: (y, cos_dist, ok, trips)
-    as numpy."""
+def _host_search(lib, xc, k, g2, lam, lane_ok, iters, src=None):
+    """The header's whole search over every row (row r of xc and lane_ok,
+    or row src[r]): (y, cos_dist, ok, trips) as numpy."""
+    if src is not None:
+        xc, lane_ok = xc[src.long()], lane_ok[src.long()]
     m, n = xc.shape
     f32 = lambda t: np.ascontiguousarray(t.numpy(), np.float32)
     ins = [f32(xc), np.ascontiguousarray(k.numpy(), np.int32), f32(g2),
@@ -252,6 +254,31 @@ def test_row_trip_counts_give_the_batched_result(n):
                                     for a in args])
         for b, o in zip(batch, row):
             assert torch.equal(b[r:r + 1], o)
+
+
+@pytest.mark.parametrize("n", [8, 15, 128])
+def test_row_index_searches_the_chosen_rows(host_step, n):
+    """With `src`, row r searches row src[r] of xc and lane_ok: the same
+    result as the rows gathered first, in the plain version and in the
+    header's search; src must be int32 with one entry a row."""
+    xc, k, g2, lam, lane_ok, iters = _random_inputs(n, 90, 5 * n)
+    rng = np.random.default_rng(n)
+    src = torch.from_numpy(rng.integers(0, 80, 300).astype(np.int32))
+    k2 = torch.from_numpy(rng.choice([0, 1, 2, 3, 9, n + 20], 300))
+    g22 = torch.from_numpy(rng.uniform(0.1, 4, 300).astype(np.float32))
+    got = PK.pulse_search(xc, k2, g22, lam, lane_ok, iters, src)
+    want = PK.pulse_search_plain(xc[src.long()], k2, g22, lam,
+                                 lane_ok[src.long()], iters)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32) if g.is_floating_point()
+                           else g, w.view(torch.int32)
+                           if w.is_floating_point() else w)
+    _assert_same(_host_search(host_step, xc, k2, g22, lam, lane_ok, iters,
+                              src), want)
+    with pytest.raises(ValueError, match="src"):
+        PK.pulse_search(xc, k2, g22, lam, lane_ok, iters, src.long())
+    with pytest.raises(ValueError, match="k"):
+        PK.pulse_search(xc, k2[:-1], g22, lam, lane_ok, iters, src)
 
 
 def test_wrapper_runs_plain_on_cpu_and_raises_elsewhere():

@@ -15,10 +15,11 @@ XLA:CPU's order, read inside JAX's _pulse_search: for n <= 32 each dot
 product is one chain of fused multiply-adds from lane 0 up and each
 plain sum one chain; longer rows are summed in chunks of 32 lanes (each
 product rounded to float32 first), each chunk a chain, then the chunk
-sums in order.  (band_search's skip_diff is held within 1e-5, as
-test_torch_pvqsearch.py holds it: its distortions are float32
-expressions that XLA:CPU contracts into fused multiply-adds, outside
-the pulse search.)  With torch.sum, which the port took before, cos_dist
+sums in order.  (band_search's skip_diff, whose distortions are
+float32 expressions that XLA:CPU contracts into fused multiply-adds
+outside the pulse search, takes those forms too:
+ops/cuda/band_kernels.py, tests/test_torch_band_order.py.)  With
+torch.sum, which the port took before, cos_dist
 differs from JAX's in hundreds of these rows at every n (y and ok
 agree), so these tests fail there.
 """
@@ -86,9 +87,9 @@ def test_pulse_search_matches_jax_bit_for_bit(n):
 
 @pytest.mark.parametrize("is_keyframe", [False, True])
 def test_band_search_matches_jax_bit_for_bit(is_keyframe):
-    """band_search on rows whose sums pass 2^24: every decision and the
-    pulses equal JAX's bit for bit, skip_diff within rtol 1e-5 (atol
-    1e-6, NaN where JAX has NaN)."""
+    """band_search on rows whose sums pass 2^24: every decision, the
+    pulses and skip_diff equal JAX's bit for bit (NaN where JAX has
+    NaN)."""
     n = 32
     _, cw = _cdfs(is_keyframe)
     qm = np.full(n, 16, np.int32)
@@ -106,5 +107,5 @@ def test_band_search_matches_jax_bit_for_bit(is_keyframe):
                        is_keyframe)
     for i in (0, 1, 2, 3, 4, 5, 7):
         np.testing.assert_array_equal(got[i], want[i], err_msg=str(i))
-    np.testing.assert_allclose(got[6], want[6], rtol=1e-5, atol=1e-6,
-                               equal_nan=True)
+    np.testing.assert_array_equal(_bits(got[6]), _bits(want[6]),
+                                  err_msg="skip_diff")
