@@ -64,6 +64,11 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    the same calls' arguments, and sad_fields (csrc/sad_fields.cu,
    the SAD fields of models/mefield.py) on the 1080p translation pair
    at r = 16, as one tile and as the 2 x 2 tiles of phase 9's mesh.
+   Untimed: the prologue's arccos (csrc/band_row.cuh br::acos_xla,
+   glibc's atan2f written out; band_kernels.acos_xla_cuda) against
+   acos_xla on the card on every float32 c in [-1, 1], 2,130,706,434
+   values, bit for bit; and, for information, the c where CUDA's own
+   atan2f, which the kernels do not take, and theta_q part from it.
 2c. Device OBMC prediction: models/obmc.py predict_frame_plane_device on
    the card against the host predictor (the port's numpy copy of it,
    codec/mc.py mc_predict_frame) on a random 1080p mesh with every subdivision level, all three
@@ -96,7 +101,9 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    the search marked invalid (searched on the host), and, from
    utils/profile.py's torch.profiler trace of a fresh encoder's
    keyframe and first inter frame, the launches, device time and rows
-   of every band_search call.
+   of every band_search call.  Every band_search call of that trace is
+   replayed on the CPU, where the plain versions run: every row's ints,
+   pulses and skip_diff bits (NaN equal to NaN) must equal the card's.
 3d. The full-pel SAD fields (models/mefield.py) of one 1080p frame pair
    on the card and on the CPU: equal.
 3e. The dering candidates of one 1080p frame (its luma lifted to the
@@ -1271,6 +1278,99 @@ def watch_band_kernels(calls):
     return restore
 
 
+def watch_io(calls):
+    """Replace pvqsearch.band_search by a wrapper that appends (args,
+    kwargs, outputs) of every call to `calls`, the tensors themselves:
+    on the card each is made for the call (an upload or a new tensor)
+    and nothing writes it after, since the codec fetches copies (on the
+    CPU an upload shares the codec's arrays, which it goes on updating);
+    returns the function that restores it."""
+    from daala_tpu_torch.models import pvqsearch as PS
+    real = PS.band_search
+
+    def watched(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+    PS.band_search = watched
+
+    def restore():
+        PS.band_search = real
+    return restore
+
+
+def rows_differing(torch, got, want):
+    """The rows of two band_search results (ints, y, skip_diff) where any
+    output differs, skip_diff by its bits with NaN equal to NaN."""
+    g, w = got[2], want[2]
+    same = ((got[0] == want[0]).all(1) & (got[1] == want[1]).all(1)
+            & ((g.view(torch.int32) == w.view(torch.int32))
+               | (g.isnan() & w.isnan())))
+    return int((~same).sum())
+
+
+def replay_on_cpu(torch, calls, labels):
+    """Each band_search call captured by watch_io on the card run again
+    on the CPU, where the plain versions run; raises unless every row
+    equals the card's."""
+    from daala_tpu_torch.models.pvqsearch import band_search as search
+    cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
+    if any(o.device.type != "cuda" for _, _, out in calls for o in out):
+        raise AssertionError("a captured band_search call ran off the card")
+    total = off = 0
+    t0 = time.perf_counter()
+    for label, (args, kw, out) in zip(labels, calls):
+        d = rows_differing(torch, [cpu(o) for o in out],
+                           search(*map(cpu, args),
+                                  **{k: cpu(v) for k, v in kw.items()}))
+        print("lean replay %s: band_search n=%d, %d rows: %d differ between "
+              "the card and the CPU" % (label, args[9], out[0].shape[0], d))
+        total += out[0].shape[0]
+        off += d
+    print("lean replay: %d of %d rows differ over %d calls (%.1f s)"
+          % (off, total, len(calls), time.perf_counter() - t0))
+    if off or not calls:
+        raise AssertionError("band_search on the card differs from its CPU "
+                             "replay on %d of %d rows" % (off, total))
+
+
+def phase_band_acos(torch, dev):
+    """The prologue kernel's arccos alone against acos_xla on the card,
+    on every float32 c in [-1, 1].  For information, beside it: where
+    CUDA's own atan2f (torch.atan2 on the card), which the kernels do not
+    take, parts from acos_xla, and where theta_q parts with it."""
+    import platform
+    from daala_tpu_torch.ops.cuda import band_kernels as BK
+    one, chunk, sign = 0x3F800000, 1 << 26, 1 << 31
+    n = off = native = native_tq = 0
+    t0 = time.perf_counter()
+    for neg in (0, sign):
+        for u0 in range(0, one + 1, chunk):
+            cnt = min(chunk, one + 1 - u0)
+            c = torch.arange(u0 - neg, u0 + cnt - neg, dtype=torch.int64,
+                             device=dev).to(torch.int32).view(torch.float32)
+            got, want = BK.acos_xla_cuda(c), BK.acos_xla(c)
+            off += int((got.view(torch.int32) != want.view(torch.int32))
+                       .sum())
+            cuda = torch.atan2(torch.sqrt((1.0 - c) * (c + 1.0)), c)
+            part = cuda.view(torch.int32) != want.view(torch.int32)
+            native += int(part.sum())
+            tq = [torch.floor(BK._fma32(a[part], BK._THETA_C, 0.5))
+                  for a in (cuda, want)]
+            native_tq += int((tq[0] != tq[1]).sum())
+            n += cnt
+    torch.cuda.synchronize()
+    print("band acos: host C library %s; CUDA's atan2f differs from "
+          "acos_xla at %d of %d c, theta_q at %d [information only]"
+          % (platform.libc_ver(), native, n, native_tq))
+    print("band acos: the kernel's arccos against acos_xla on the card: %d "
+          "of %d float32 c in [-1, 1] differ (%.1f s)"
+          % (off, n, time.perf_counter() - t0))
+    if off or n != 2 * (one + 1):
+        raise AssertionError("the kernel's arccos differs from acos_xla on "
+                             "%d of %d c" % (off, n))
+
+
 def band_work(name, args):
     """(bytes, ops) of band_prologue or band_epilogue on its arguments,
     operations as int32-lane operations counted from the code
@@ -1334,11 +1434,10 @@ def pulse_work(args):
     the init, the first ones scoring the correlation, those from i >= kf
     - rdo_pulses on the rate penalised score): per lane and step 7
     (txy, tyy's three, the square, the division, the comparison of the
-    argmax) or 11 (txy, tyy's three, 2 txy norm_1's two, the fused
-    multiply-add in float64 counted as 4 float32 operations, the
-    comparison); the Newton steps of lanes past the table are not
-    counted, so this is a least count; per row and step 5 for the
-    update.  The epilogue: per lane the sign, per row cos_dist's
+    argmax) or 9 (txy, tyy's three, 2 txy norm_1's two, the fused
+    multiply-add, the comparison); the Newton steps of lanes past the
+    table are not counted, so this is a least count; per row and step 5
+    for the update.  The epilogue: per lane the sign, per row cos_dist's
     product and rsqrt (14).  The trip counts come from the plain
     version's loop arguments on these inputs."""
     from daala_tpu_torch.ops.cuda import pulse_kernels as PK
@@ -1359,7 +1458,7 @@ def pulse_work(args):
     kf, i, rdo = (t.double().cpu().numpy() for t in (kf, i, rdo))
     trips = np.minimum(iters, np.maximum(0.0, np.ceil(kf - i)))
     p2 = np.maximum(0.0, trips - np.maximum(0.0, np.ceil(kf - rdo - i)))
-    ops = (n * (7 * (trips - p2).sum() + 11 * p2.sum()) + 5 * trips.sum()
+    ops = (n * (7 * (trips - p2).sum() + 9 * p2.sum()) + 5 * trips.sum()
            + m * (18 * n + 31))
     return nbytes, int(ops), "flops_per_s", int(trips.max(initial=0))
 
@@ -1477,12 +1576,14 @@ def phase_lean(torch, dev, ref):
         # band length and rows.
         del calls[:]
         os.makedirs(BUILD, exist_ok=True)
-        pulse, band = [], []
+        pulse, band, io = [], [], []
         stop = watch_pulse_search(pulse)
         stop_band = watch_band_kernels(band)
+        stop_io = watch_io(io)
         try:
             res = traced(frames, dev, BUILD, False, lean=True)
         finally:
+            stop_io()
             stop_band()
             stop()
         work = [dict(frame=label, **w) for label in ("keyframe", "inter")
@@ -1500,6 +1601,8 @@ def phase_lean(torch, dev, ref):
                      w["wall_ms"]))
     finally:
         restore()
+    replay_on_cpu(torch, io, labels if len(labels) == len(io) else
+                  ["call %d" % k for k in range(len(io))])
     band_labels = [lab for lab in labels for _ in range(2)]
     if len(band) != len(band_labels):
         band_labels = ["call %d" % (k // 2) for k in range(len(band))]
@@ -1544,6 +1647,7 @@ def phase_search_kernels(torch, dev, res, pulse_calls, band_calls):
     if not pulse_calls or not band_calls:
         raise AssertionError("phase 3c captured no pulse_search or band "
                              "kernel call")
+    phase_band_acos(torch, dev)
     for label, name, args in band_calls:
         kern, plain = ((BK.band_prologue_cuda, BK.band_prologue_plain)
                        if name == "band_prologue" else

@@ -13,10 +13,11 @@
 //
 // Floats: every float32 operation is one IEEE operation in the plain
 // version's order, through pulse_step.cuh's ps_add, ps_mul, ps_div and
-// ps_fma32 (the product in double, the sum in double, one rounding to
-// float: the plain versions' _fma32), which nvcc never contracts.  The two
-// transcendentals: XLA's log is written out (br::log); atan2 is the
-// caller's (Atan2: atan2f on the card, whichever the host test injects).
+// ps_fma32 (a fused multiply-add rounded once: the plain versions'
+// _fma32), which nvcc never contracts.  The two transcendentals are
+// written out, as XLA:CPU computes them for JAX on the CPU: XLA's log
+// (br::log) and glibc's atan2f (br::atan2f_glibc), so the card, the host
+// build and the plain versions compute the same arccos.
 
 #pragma once
 
@@ -221,6 +222,110 @@ PS_HD float log(float x) {
   return ps_fma32(e, q2, s);
 }
 
+// glibc 2.36's float32 atan (fdlibm's __atanf, sysdeps/ieee754/flt-32/
+// s_atanf.c): the argument's range picks its reduction (none below 0.4375,
+// then about atan(0.5), atan(1), atan(1.5) and atan(inf)), one polynomial
+// of 11 terms in x^2, split odd and even; |x| < 2^-29 and |x| >= 2^25 return
+// at once.  band_kernels.py atanf_glibc is its plain version.
+PS_HD float atanf_glibc(float x) {
+  const float t0 = f32(0x3EAAAAABu), t1 = f32(0xBE4CCCCDu);
+  const float t2 = f32(0x3E124925u), t3 = f32(0xBDE38E38u);
+  const float t4 = f32(0x3DBA2E6Eu), t5 = f32(0xBD9D8795u);
+  const float t6 = f32(0x3D886B35u), t7 = f32(0xBD6EF16Bu);
+  const float t8 = f32(0x3D4BDA59u), t9 = f32(0xBD15A221u);
+  const float t10 = f32(0x3C8569D7u);
+  const int32_t hx = ps_bits(x), ix = hx & 0x7fffffff;
+  // atan(0.5), atan(1), atan(1.5) and atan(inf), each in two parts.
+  auto hi = [](int id) {
+    return f32(id == 0 ? 0x3EED6338u : id == 1 ? 0x3F490FDAu
+               : id == 2 ? 0x3F7B985Eu : 0x3FC90FDAu);
+  };
+  auto lo = [](int id) {
+    return f32(id == 0 ? 0x31AC3769u : id == 1 ? 0x33222168u
+               : id == 2 ? 0x33140FB4u : 0x33A22168u);
+  };
+  if (ix >= 0x4c000000) {  // |x| >= 2^25, or NaN
+    if (ix > 0x7f800000) return ps_add(x, x);
+    const float v = ps_add(hi(3), lo(3));
+    return hx > 0 ? v : -v;
+  }
+  int id = -1;
+  if (ix < 0x3ee00000) {  // |x| < 0.4375
+    if (ix < 0x31000000) return x;  // |x| < 2^-29
+  } else {
+    const float a = ps_float(ix);
+    if (ix < 0x3f300000) {  // < 11/16
+      id = 0;
+      x = ps_div(sub(ps_mul(2.0f, a), 1.0f), ps_add(2.0f, a));
+    } else if (ix < 0x3f980000) {  // < 19/16
+      id = 1;
+      x = ps_div(sub(a, 1.0f), ps_add(a, 1.0f));
+    } else if (ix < 0x401c0000) {  // < 2.4375
+      id = 2;
+      x = ps_div(sub(a, 1.5f), ps_add(1.0f, ps_mul(1.5f, a)));
+    } else {
+      id = 3;
+      x = ps_div(-1.0f, a);
+    }
+  }
+  const float z = ps_mul(x, x), w = ps_mul(z, z);
+  const float s1 = ps_mul(
+      z, ps_add(t0, ps_mul(w, ps_add(t2, ps_mul(w, ps_add(t4, ps_mul(
+             w, ps_add(t6, ps_mul(w, ps_add(t8, ps_mul(w, t10)))))))))));
+  const float s2 = ps_mul(
+      w, ps_add(t1, ps_mul(w, ps_add(t3, ps_mul(w, ps_add(t5, ps_mul(
+             w, ps_add(t7, ps_mul(w, t9)))))))));
+  const float xs = ps_mul(x, ps_add(s1, s2));
+  if (id < 0) return sub(x, xs);
+  const float v = sub(hi(id), sub(sub(xs, lo(id)), x));
+  return hx < 0 ? -v : v;
+}
+
+// glibc 2.36's float32 atan2 (fdlibm's __ieee754_atan2f,
+// sysdeps/ieee754/flt-32/e_atan2f.c), the atan2f that XLA:CPU calls in
+// JAX's arccos: NaNs, x = 1, zeros and infinities first, then atan(|y / x|)
+// moved to the quadrant of (x, y).  band_kernels.py atan2f_glibc is its
+// plain version.
+PS_HD float atan2f_glibc(float y, float x) {
+  const float pi = f32(0x40490FDBu), pi_lo = f32(0xB3BBBD2Eu);
+  const float pi_o_4 = f32(0x3F490FDBu), pi_o_2 = f32(0x3FC90FDBu);
+  const float tiny = f32(0x0DA24260u);  // 1e-30
+  const int32_t hx = ps_bits(x), ix = hx & 0x7fffffff;
+  const int32_t hy = ps_bits(y), iy = hy & 0x7fffffff;
+  if (ix > 0x7f800000 || iy > 0x7f800000) return ps_add(x, y);
+  if (hx == 0x3f800000) return atanf_glibc(y);
+  const int m = ((hy >> 31) & 1) | ((hx >> 30) & 2);  // 2 sign(x) + sign(y)
+  const float half_pi = ps_add(pi_o_2, tiny), full_pi = ps_add(pi, tiny);
+  if (iy == 0) return m < 2 ? y : (m == 2 ? full_pi : -full_pi);
+  if (ix == 0) return hy < 0 ? -half_pi : half_pi;
+  if (ix == 0x7f800000) {
+    float v;
+    if (iy == 0x7f800000)
+      v = ps_add(m < 2 ? pi_o_4 : ps_mul(3.0f, pi_o_4), tiny);
+    else
+      v = m < 2 ? 0.0f : full_pi;
+    return (m & 1) ? -v : v;
+  }
+  if (iy == 0x7f800000) return hy < 0 ? -half_pi : half_pi;
+  const int32_t k = (iy - ix) >> 23;
+  float z;
+  if (k > 60)
+    z = ps_add(pi_o_2, ps_mul(0.5f, pi_lo));
+  else if (hx < 0 && k < -60)
+    z = 0.0f;
+  else
+    z = atanf_glibc(fabsf(ps_div(y, x)));
+  if (m == 0) return z;
+  if (m == 1) return -z;
+  return m == 2 ? sub(pi, sub(z, pi_lo)) : sub(sub(z, pi_lo), pi);
+}
+
+// JAX's arccos of c in [-1, 1] as XLA:CPU computes it (band_kernels.py
+// acos_xla): atan2(sqrt((1 - c)(1 + c)), c).
+PS_HD float acos_xla(float c) {
+  return atan2f_glibc(sqrtf(ps_mul(sub(1.0f, c), ps_add(c, 1.0f))), c);
+}
+
 // float32 -> int64 through floor, NaN -> 0 (as XLA converts).
 PS_HD int64_t floor_i(float v) { return v != v ? 0 : (int64_t)floorf(v); }
 
@@ -289,6 +394,45 @@ struct SerialLanes {
     *p1 = a;
     *p2 = b;
   }
+  // The same sums in 8 lanes (span <= 32; band_kernels.py node_sum): lane
+  // i sums e = i, i + 8, ... below 8 floor(span / 8), the lanes are halved
+  // (i + 4, + 2, + 1), then the rest are added in order.
+  // The lanes rotate through a[0] (constant indices keep them in
+  // registers on the card): after 8 k elements lane i is back in a[i].
+  template <typename F>
+  PS_HD void lanes8(int span, F f, float *p1, float *p2) const {
+    float a[8] = {}, b[8] = {};
+    const int body = span & ~7;
+    for (int e = 0; e < body; e++) {
+      float c1, c2;
+      f(e, &c1, &c2);
+      const float na = ps_add(a[0], c1), nb = ps_add(b[0], c2);
+      for (int i = 0; i < 7; i++) {
+        a[i] = a[i + 1];
+        b[i] = b[i + 1];
+      }
+      a[7] = na;
+      b[7] = nb;
+    }
+    for (int i = 0; i < 4; i++) {
+      a[i] = ps_add(a[i], a[i + 4]);
+      b[i] = ps_add(b[i], b[i + 4]);
+    }
+    for (int i = 0; i < 2; i++) {
+      a[i] = ps_add(a[i], a[i + 2]);
+      b[i] = ps_add(b[i], b[i + 2]);
+    }
+    a[0] = ps_add(a[0], a[1]);
+    b[0] = ps_add(b[0], b[1]);
+    for (int e = body; e < span; e++) {
+      float c1, c2;
+      f(e, &c1, &c2);
+      a[0] = ps_add(a[0], c1);
+      b[0] = ps_add(b[0], c2);
+    }
+    *p1 = a[0];
+    *p2 = b[0];
+  }
 };
 
 // ---- the prologue of one row ----
@@ -335,12 +479,12 @@ PS_HD float dth_of(int64_t theta_q, int64_t qth) {
 // One row, through the lane policy L.  X, R, QM: the row's n gathered
 // coefficients, reference coefficients (zeros on keyframes) and QM
 // values; q0, b15: its quantizer and beta-1.5 flag; rt0 / rt1: the theta
-// / noref square-root table entries of n; atan2: the float32 atan2f.
-template <typename Lanes, typename Atan2>
+// / noref square-root table entries of n.
+template <typename Lanes>
 PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
                         const int32_t *X, const int32_t *R,
                         const int32_t *QM, int64_t q0, bool b15, int64_t rt0,
-                        int64_t rt1, Atan2 atan2, const Out &o) {
+                        int64_t rt1, const Out &o) {
   // vector_log_mag: the shifts that bring each vector to 16 bits.
   const int64_t xs_tot = L.sum(n, [&](int j) {
     const int64_t t = (int64_t)X[j] >> 8;
@@ -437,10 +581,7 @@ PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
                            : 0.0f;
       o.lane_ok[at] = j < n - 1;
     });
-    theta_q = floor_i(ps_fma32(atan2(sqrtf(ps_mul(sub(1.0f, corr),
-                                                  ps_add(corr, 1.0f))),
-                                     corr),
-                               theta_c(), 0.5f));
+    theta_q = floor_i(ps_fma32(acos_xla(corr), theta_c(), 0.5f));
     gain_bound = (cg - gain_offset) >> CGAIN_SHIFT;
     i_base = imax(gain_bound - 1, 1);
     noref_on = corr < 0.5f || cg < shl32(2, CGAIN_SHIFT);
@@ -595,18 +736,26 @@ PS_HD float codeword_rate(const Lanes &L, Y y, int n, int n_tree,
     const int64_t v = y(j);
     return j < n_tree ? (v < 0 ? -v : v) : 0;
   }, cs);
-  // XLA's node sums: one chain for at most 32 nodes, else chunks of 32 with
-  // pad // 2 zeros in front, then the chunks' sums in order.
+  auto cost = [&](int v, float *c1, float *c2) {
+    node_cost(nodes, v, cs, k1, last1, sp, w2, rows2, c1, c2);
+  };
+  float sum1 = 0.0f, sum2 = 0.0f;
+  // XLA's node sums: one chain below 16 nodes, 8 lanes from 16 to 32, else
+  // chunks of 32 with pad // 2 zeros in front, then the chunks' sums in
+  // order.
+  if (NN >= 16 && NN <= 32) {
+    L.lanes8(NN, cost, &sum1, &sum2);
+    return ps_add(sum1, sum2);
+  }
   const int nc = NN <= 32 ? 1 : (NN + 31) / 32;
   const int span = NN <= 32 ? NN : 32;
   const int lead = NN <= 32 ? 0 : (nc * 32 - NN) / 2;
-  float sum1 = 0.0f, sum2 = 0.0f;
   for (int ch = 0; ch < nc; ch++) {
     float p1, p2;
     L.chain(span, [&](int e, float *c1, float *c2) {
       const int v = ch * 32 + e - lead;
       if (v >= 0 && v < NN) {
-        node_cost(nodes, v, cs, k1, last1, sp, w2, rows2, c1, c2);
+        cost(v, c1, c2);
       } else {
         *c1 = 0.0f;
         *c2 = 0.0f;
@@ -662,26 +811,29 @@ PS_HD void cand_dist(bool isnr, bool keyframe, float cos_dist, float sinp,
                    : *dist;
 }
 
-// The winner of a row's C candidates (band_kernels.py _select): -1 for the
-// initial candidate.  cost(c), ok(c) for c < C; the last two are noref.
-template <typename Cost, typename Ok>
-PS_HD int select(float best_cost, int C, Cost cost, Ok ok) {
-  const float inf = ps_float(0x7f800000);
-  float vmin = inf;
+// JAX's scan over a row's C candidates (band_kernels.py _select): the best
+// cost starts at best_cost (the initial candidate, -1), and candidate c in
+// order replaces it when ok(c) and cost(c) is below it (theta) or not above
+// it (noref, the last two); a NaN compares false.  *win: the last to
+// replace it.  *win_y: the last c whose cost_y(c) passes the same test
+// against the best cost before c: the fusion that carries JAX's pulses
+// computes the cost its own way (see epilogue_cand).
+template <typename Cost, typename CostY, typename Ok>
+PS_HD void select(float best_cost, int C, Cost cost, CostY cost_y, Ok ok,
+                  int *win, int *win_y) {
+  float b = best_cost;
+  *win = -1;
+  *win_y = -1;
   for (int c = 0; c < C; c++) {
-    const float v = cost(c);
-    if (ok(c) && v == v && v < vmin) vmin = v;
+    if (!ok(c)) continue;
+    const bool nr = c >= C - 2;
+    const float v = cost(c), vy = cost_y(c);
+    if (nr ? vy <= b : vy < b) *win_y = c;
+    if (nr ? v <= b : v < b) {
+      b = v;
+      *win = c;
+    }
   }
-  if (best_cost != best_cost) return -1;
-  const float mn = best_cost < vmin ? best_cost : vmin;
-  int first = C;
-  for (int c = C - 1; c >= 0; c--)
-    if (ok(c) && cost(c) == mn) first = c;
-  if (best_cost == mn) first = -1;
-  int last = -1;
-  for (int c = C - 2; c < C; c++)
-    if (c > first && ok(c) && cost(c) == mn) last = c;
-  return last >= 0 ? last : first;
 }
 
 // What the epilogue reads: the pulse search's result on the prologue's
@@ -713,14 +865,17 @@ PS_HD int32_t epi_i(const EpiIn &a, int f, int c, int64_t row) {
   return a.ci[((int64_t)f * a.C + c) * a.m + row];
 }
 
-// Candidate c of a row, through the lane policy L: its cost, the
-// distortion XLA keeps, and whether it is ok.  y: its n pulses (row c m +
-// row of y_c, or a copy), as y(j) (int64); cs: scratch of n + 1 (y may
-// read cs[j + 1]: codeword_rate reads it before it writes it).
+// Candidate c of a row, through the lane policy L: its cost, the cost by
+// which JAX's pulses are selected, the distortion XLA keeps, and whether it
+// is ok.  XLA:CPU contracts dist + lam rate into fma(lam, rate, dist)
+// everywhere but in the inter fusion that carries the pulses, which rounds
+// lam rate first.  y: its n pulses (row c m + row of y_c, or a copy), as
+// y(j) (int64); cs: scratch of n + 1 (y may read cs[j + 1]: codeword_rate
+// reads it before it writes it).
 template <typename Lanes, typename Y>
 PS_HD void epilogue_cand(const Lanes &L, const EpiIn &a, int64_t row, int c,
-                         Y y, int64_t *cs, float *cost, float *kept,
-                         bool *ok) {
+                         Y y, int64_t *cs, float *cost, float *cost_y,
+                         float *kept, bool *ok) {
   const bool isnr = c >= a.C - 2;
   const int64_t rc = (int64_t)c * a.m + row;
   float rate;
@@ -736,17 +891,20 @@ PS_HD void epilogue_cand(const Lanes &L, const EpiIn &a, int64_t row, int c,
   cand_dist(isnr, a.keyframe, a.cos_dist[rc], epi_f(a, 1, c, row),
             epi_f(a, 2, c, row), epi_f(a, 3, c, row), a.rf[row], &dist, kept);
   *cost = ps_fma32(rate, a.lam, dist);
+  *cost_y = a.keyframe ? *cost : ps_add(dist, ps_mul(rate, a.lam));
   *ok = epi_i(a, 2, c, row) != 0;
 }
 
-// The row's decision from its candidates' cost(c), kept(c), ok(c) and the
-// pulse search's ok_p: writes ints (6 int32) and skip_diff; returns the
-// winner (-1: the initial candidate).
-template <typename Cost, typename Kept, typename Ok>
-PS_HD int epilogue_row(const EpiIn &a, int64_t row, Cost cost, Kept kept,
-                       Ok ok, int32_t *ints, float *skip_diff) {
+// The row's decision from its candidates' cost(c), cost_y(c), kept(c),
+// ok(c) and the pulse search's ok_p: writes ints (6 int32) and skip_diff;
+// returns the candidate whose pulses are the row's (-1: the initial
+// candidate's zeros).
+template <typename Cost, typename CostY, typename Kept, typename Ok>
+PS_HD int epilogue_row(const EpiIn &a, int64_t row, Cost cost, CostY cost_y,
+                       Kept kept, Ok ok, int32_t *ints, float *skip_diff) {
   const float dist0 = a.rf[2 * a.m + row];
-  const int win = select(dist0, a.C, cost, ok);
+  int win, win_y;
+  select(dist0, a.C, cost, cost_y, ok, &win, &win_y);
   bool valid = true;
   for (int c = 0; c < a.C; c++)
     if (ok(c) && !a.ok_p[(int64_t)c * a.m + row]) valid = false;
@@ -761,15 +919,14 @@ PS_HD int epilogue_row(const EpiIn &a, int64_t row, Cost cost, Kept kept,
   o[4] = (int32_t)best_k;
   o[5] = valid ? 1 : 0;
   skip_diff[row] = sub(a.rf[a.m + row], sel ? kept(win) : dist0);
-  return win;
+  return win_y;
 }
 
 }  // namespace br
 
 #ifndef __CUDACC__
 // The prologue and epilogue of every row on the host, in one thread (the
-// g++ test's entry points), with glibc's atan2f as the CPU's plain version
-// takes it.
+// g++ test's entry points).
 inline void br_prologue_host(int m, int n, bool keyframe, float lam,
                              const int32_t *X, const int32_t *R,
                              const int32_t *QM, const int32_t *q0,
@@ -782,26 +939,26 @@ inline void br_prologue_host(int m, int n, bool keyframe, float lam,
     o.row = r;
     br::prologue_row(br::SerialLanes(), n, keyframe, lam, X + (size_t)r * n,
                      R + (size_t)r * n, QM + (size_t)r * n, q0[r],
-                     b15[r] != 0, rt0, rt1,
-                     [](float y, float x) { return atan2f(y, x); }, o);
+                     b15[r] != 0, rt0, rt1, o);
   }
 }
 
 inline void br_epilogue_host(const br::EpiIn &a, int32_t *ints,
                              int16_t *y_out, float *skip_diff) {
   int64_t cs[129];
-  float cost[14], kept[14];
+  float cost[14], cost_y[14], kept[14];
   bool ok[14];
   for (int64_t r = 0; r < a.m; r++) {
     for (int c = 0; c < a.C; c++) {
       const int32_t *y = a.y_c + ((int64_t)c * a.m + r) * a.n;
       br::epilogue_cand(br::SerialLanes(), a, r, c,
                         [&](int j) { return (int64_t)y[j]; }, cs, &cost[c],
-                        &kept[c], &ok[c]);
+                        &cost_y[c], &kept[c], &ok[c]);
     }
     const int win = br::epilogue_row(
-        a, r, [&](int c) { return cost[c]; }, [&](int c) { return kept[c]; },
-        [&](int c) { return ok[c]; }, ints, skip_diff);
+        a, r, [&](int c) { return cost[c]; }, [&](int c) { return cost_y[c]; },
+        [&](int c) { return kept[c]; }, [&](int c) { return ok[c]; }, ints,
+        skip_diff);
     for (int j = 0; j < a.n; j++)
       y_out[r * a.n + j] =
           win >= 0 ? (int16_t)a.y_c[((int64_t)win * a.m + r) * a.n + j] : 0;

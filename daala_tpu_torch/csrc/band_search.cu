@@ -33,9 +33,11 @@
 //   The warp scans its candidate's pulse magnitudes into prefix sums in
 //   shared memory, then lane e takes node 32 q + e of chunk q (blocked
 //   when one of its ancestors ends coding, read from the prefix sums) and
-//   every lane adds the chunk's nonzero costs in order through shuffles,
-//   as XLA's chain does.  After a barrier the row's first lane picks the
-//   winner (br::epilogue_row) and the row's warps copy its pulses.
+//   every lane adds the chunk's nonzero costs in XLA's order through
+//   shuffles (a chain, or for 16 to 32 nodes 8 lanes halved, then the
+//   rest).  After a barrier the row's first lane picks the winner and the
+//   candidate whose pulses XLA keeps (br::epilogue_row), and the row's
+//   warps copy those pulses.
 // - band_epilogue_rows_kernel, for a call at n <= 32 with at least 128
 //   candidates an SM (an inter frame's): a thread a (row, candidate),
 //   which runs the row's small tree serially; a warp a candidate would
@@ -43,9 +45,11 @@
 //   nodes.  The block stages its candidates' pulses and their prefix sums
 //   in shared memory.
 // Every float operation is the plain versions' through csrc/pulse_step.cuh
-// and band_row.cuh, and the kernels are built without fast math, so atan2f
-// is CUDA's, as torch's atan2 takes it: bit for bit with the plain versions
-// on the card.
+// and band_row.cuh, the arccos included (glibc's atan2f written out,
+// br::atan2f_glibc), and the kernels are built without fast math: bit for
+// bit with the plain versions on the card and on the CPU.
+// band_acos_probe_kernel runs the prologue's arccos alone, for the checks
+// that hold it to its plain version on every float32 in [-1, 1].
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,12 +64,6 @@ constexpr int MAX_N = 128;  // the codec's widest band
 constexpr int PRO_WARPS = 8;   // prologue rows a block
 constexpr int EPI_WARPS = 14;  // epilogue (row, candidate) pairs a block
 constexpr int EPI_THREADS = 128;  // the same, a thread a pair
-
-struct CudaAtan2 {
-  __host__ __device__ float operator()(float y, float x) const {
-    return atan2f(y, x);
-  }
-};
 
 // br::SerialLanes's loops over a warp: lane l takes j = l, l + 32, ...
 struct WarpLanes {
@@ -161,6 +159,35 @@ struct WarpLanes {
     *p1 = a;
     *p2 = b;
   }
+  // br::SerialLanes::lanes8 over a warp (span <= 32): lane e computes
+  // f(e), lanes i < 8 sum their part, the parts are halved by shuffles, and
+  // every lane adds the rest in order.
+  template <typename F>
+  __device__ __forceinline__ void lanes8(int span, F f, float *p1,
+                                         float *p2) const {
+    float c1 = 0.0f, c2 = 0.0f;
+    if (lane < span) f(lane, &c1, &c2);
+    const int body = span & ~7, i = lane & 7;
+    float a = 0.0f, b = 0.0f;
+    for (int e0 = 0; e0 < body; e0 += 8) {
+      a = ps_add(a, __shfl_sync(FULL, c1, e0 + i));
+      b = ps_add(b, __shfl_sync(FULL, c2, e0 + i));
+    }
+    for (int h = 4; h > 0; h >>= 1) {
+      const float oa = __shfl_sync(FULL, a, i + h);
+      const float ob = __shfl_sync(FULL, b, i + h);
+      a = ps_add(a, oa);
+      b = ps_add(b, ob);
+    }
+    a = __shfl_sync(FULL, a, 0);
+    b = __shfl_sync(FULL, b, 0);
+    for (int e = body; e < span; e++) {
+      a = ps_add(a, __shfl_sync(FULL, c1, e));
+      b = ps_add(b, __shfl_sync(FULL, c2, e));
+    }
+    *p1 = a;
+    *p2 = b;
+  }
 };
 
 __global__ void __launch_bounds__(PRO_WARPS * 32) band_prologue_kernel(
@@ -187,8 +214,16 @@ __global__ void __launch_bounds__(PRO_WARPS * 32) band_prologue_kernel(
   __syncwarp();
   const br::Out o{xs, lane_ok, src, cf, ci, rf, m, row, keyframe ? 2 : 14};
   br::prologue_row(WarpLanes{lane}, n, keyframe != 0, lam, sx[w], sr[w],
-                   sq[w], q0[row], beta15[row] != 0, rt0, rt1, CudaAtan2(),
-                   o);
+                   sq[w], q0[row], beta15[row] != 0, rt0, rt1, o);
+}
+
+__global__ void band_acos_probe_kernel(const float *__restrict__ c,
+                                       float *__restrict__ out,
+                                       int64_t count) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += stride)
+    out[i] = br::acos_xla(c[i]);
 }
 
 // NMAX: the widest row of the instantiation.  3 blocks an SM: at most 40
@@ -201,7 +236,7 @@ __global__ void __launch_bounds__(EPI_WARPS * 32, 3) band_epilogue_kernel(
     float *skip_diff) {
   __shared__ br::Node nth[2 * NMAX - 1], nnr[2 * NMAX - 1];
   __shared__ int64_t cs[EPI_WARPS][NMAX + 1];
-  __shared__ float s_cost[EPI_WARPS], s_kept[EPI_WARPS];
+  __shared__ float s_cost[EPI_WARPS], s_cost_y[EPI_WARPS], s_kept[EPI_WARPS];
   __shared__ uint8_t s_ok[EPI_WARPS];
   __shared__ int s_win[EPI_WARPS];
   for (int e = threadIdx.x; e < a.nn_th * 6; e += blockDim.x)
@@ -221,14 +256,15 @@ __global__ void __launch_bounds__(EPI_WARPS * 32, 3) band_epilogue_kernel(
     const int64_t row = g * rpb + rb;
     const bool live = rb < rpb && row < a.m;
     if (live) {
-      float cost, kept;
+      float cost, cost_y, kept;
       bool ok;
       const int32_t *y = a.y_c + ((int64_t)c * a.m + row) * a.n;
       br::epilogue_cand(WarpLanes{lane}, s, row, c,
                         [&](int j) { return (int64_t)y[j]; }, cs[w], &cost,
-                        &kept, &ok);
+                        &cost_y, &kept, &ok);
       if (lane == 0) {
         s_cost[w] = cost;
+        s_cost_y[w] = cost_y;
         s_kept[w] = kept;
         s_ok[w] = ok;
       }
@@ -237,6 +273,7 @@ __global__ void __launch_bounds__(EPI_WARPS * 32, 3) band_epilogue_kernel(
     if (live && c == 0 && lane == 0)
       s_win[rb] = br::epilogue_row(
           s, row, [&](int q) { return s_cost[w0 + q]; },
+          [&](int q) { return s_cost_y[w0 + q]; },
           [&](int q) { return s_kept[w0 + q]; },
           [&](int q) { return s_ok[w0 + q] != 0; }, ints, skip_diff);
     __syncthreads();
@@ -264,7 +301,7 @@ __global__ void __launch_bounds__(EPI_THREADS) band_epilogue_rows_kernel(
   constexpr int T = EPI_THREADS;
   __shared__ br::Node nth[2 * NMAX - 1], nnr[2 * NMAX - 1];
   __shared__ int64_t cs[T][NMAX + 1];
-  __shared__ float s_cost[T], s_kept[T];
+  __shared__ float s_cost[T], s_cost_y[T], s_kept[T];
   __shared__ uint8_t s_ok[T];
   __shared__ int s_win[T];
   for (int e = threadIdx.x; e < a.nn_th * 6; e += T)
@@ -295,7 +332,7 @@ __global__ void __launch_bounds__(EPI_THREADS) band_epilogue_rows_kernel(
     int64_t *ct = cs[t];
     br::epilogue_cand(br::SerialLanes(), s, row, c,
                       [&](int j) { return ct[j + 1]; }, ct, &s_cost[t],
-                      &s_kept[t], &ok);
+                      &s_cost_y[t], &s_kept[t], &ok);
     s_ok[t] = ok;
   }
   __syncthreads();
@@ -303,6 +340,7 @@ __global__ void __launch_bounds__(EPI_THREADS) band_epilogue_rows_kernel(
   if (live && c == 0)
     s_win[rb] = br::epilogue_row(
         s, row, [&](int q) { return s_cost[t0 + q]; },
+        [&](int q) { return s_cost_y[t0 + q]; },
         [&](int q) { return s_kept[t0 + q]; },
         [&](int q) { return s_ok[t0 + q] != 0; }, ints, skip_diff);
   __syncthreads();
@@ -432,4 +470,16 @@ extern "C" int band_epilogue(const void *y_c, const void *cos_dist,
   if (n <= 16) return (int)launch_epilogue<16>(a, th, nr, io, yo, sd, s);
   if (n <= 32) return (int)launch_epilogue<32>(a, th, nr, io, yo, sd, s);
   return (int)launch_epilogue<128>(a, th, nr, io, yo, sd, s);
+}
+
+// The prologue's arccos (br::acos_xla) of each of c's count float32
+// values, into out.
+extern "C" int band_acos_probe(const void *c, void *out, long long count,
+                               void *stream) {
+  if (count <= 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (count + 255) / 256;
+  band_acos_probe_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                           (cudaStream_t)stream>>>(
+      (const float *)c, (float *)out, (int64_t)count);
+  return (int)cudaGetLastError();
 }

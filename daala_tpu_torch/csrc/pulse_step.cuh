@@ -8,9 +8,9 @@
 //
 // Every float operation is written out as one IEEE operation in the plain
 // version's order and association: on the card through __fadd_rn,
-// __fmul_rn, __fdiv_rn, __dadd_rn and __dmul_rn, which nvcc never
-// contracts into a fused multiply-add (the build's flags leave -fmad on);
-// on the host as plain C++ operators, compiled with -ffp-contract=off.
+// __fmul_rn, __fdiv_rn and __fmaf_rn, which nvcc never contracts into
+// another fused multiply-add (the build's flags leave -fmad on); on the
+// host as plain C++ operators and fmaf, compiled with -ffp-contract=off.
 //
 // Why no NaN can arise in the loop: tyy = (yy + 2 yp) + 1 >= 1, since yy
 // and yp are sums of non-negative integers, so the division of score1 and
@@ -58,14 +58,13 @@ PS_HD float ps_div(float a, float b) {
 #endif
 }
 
-// pvqsearch.py _fma32: the product of two floats in double (exact), the
-// sum in double (one rounding), then one rounding to float.
+// pulse_kernels.py _fma32: a * b + c rounded once to float, as XLA:CPU's
+// contractions (hardware FMAs) round it.
 PS_HD float ps_fma32(float a, float b, float c) {
 #ifdef __CUDA_ARCH__
-  return __double2float_rn(
-      __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
+  return __fmaf_rn(a, b, c);
 #else
-  return (float)((double)a * (double)b + (double)c);
+  return fmaf(a, b, c);
 #endif
 }
 

@@ -32,8 +32,10 @@ forms XLA:CPU takes, read in its optimized HLO and LLVM IR:
   32-lane chunks for n = 128; `ordered_dot`);
 - the rest (ops/cuda/band_kernels.py, whose docstring lists them): the
   inter skip distortion, the theta = 0 candidate's, the theta gate's,
-  every candidate's distortion, its cost (fma(lam, rate, dist)) and
-  the theta rate are fused multiply-adds where LLVM contracts them;
+  every candidate's distortion, its cost (fma(lam, rate, dist), save in
+  the inter fusion that picks the pulses, which rounds lam rate first)
+  and the theta rate are fused multiply-adds where LLVM contracts them,
+  each rounded once;
   the correlation's quotient, the theta scale and 0.9 log2 are XLA's
   rewrites of them; log is XLA's polynomial, arccos glibc's atan2f of
   XLA's argument; the rate trees' node sums take XLA's order.

@@ -18,8 +18,8 @@ add or subtract that uses it, first operand first):
 
 - corr = (corr_i 2^s) / (g gr): XLA drops the 1e-100 (0 in float32) and
   rewrites A / (B / C) as (A C) / B;
-- acos(c) = atan2(sqrt((1 - c)(1 + c)), c), with the platform's float32
-  atan2f: glibc's on the CPU, as XLA:CPU calls it, CUDA's on the card;
+- acos(c) = atan2(sqrt((1 - c)(1 + c)), c), with glibc's float32 atan2f,
+  which XLA:CPU calls, written out (`atan2f_glibc`) on every device;
 - theta_q = floor(fma(theta, 65536 / pi, 0.5)); the theta scale folds
   to 2^-15; t_lower = floor(fma(tq_s, ts, 0.5)), except in the fusion
   that tests it against t_upper, where the product has two uses and is
@@ -28,18 +28,21 @@ add or subtract that uses it, first operand first):
   fma(2 - 2 corr, cr cg, 1.4 (cg - cr)^2) 2^-16; the theta gate's and
   every candidate's distortion fma(1.4, (q - cg)^2, q cg t) 2^-16 (t
   the theta or noref term, whose theta part is fma(sinp, 2 - 2 cos,
-  dth)); the cost fma(lam, rate, dist);
+  dth)); the cost fma(lam, rate, dist), except where the inter scan
+  picks the pulses: that fusion rounds lam rate first (`_select`);
 - log2 is XLA's log (`xla_log`, a Cephes polynomial with its own
   contractions) times float32(1 / ln 2); the codeword costs are
   fma(-log p, c, log2 tot) (k = 1 leaves) and fma(log tot, c, -log2 p)
   + shift (splits); the theta rate fma(log ts, float32(0.9 / ln 2),
   -0.5 [i == icgr]);
-- the node sums of the rate tree are chains for at most 32 nodes, else
-  chunks of 32 with the padding split low / high as XLA pads them
-  (`node_sum`).
+- the node sums of the rate tree are chains below 16 nodes, 8 lanes
+  halved then the rest up to 32, else chunks of 32 with the padding
+  split low / high as XLA pads them (`node_sum`).
 
-Everything else (the fixed-point gains, companding, Householder and k)
-is int64 with torch's shift rules, as before.  See csrc/band_row.cuh
+A fused multiply-add is rounded once (pulse_kernels.py `_fma32`), as
+the CPU's and the card's FMA instructions round it.  Everything else
+(the fixed-point gains, companding, Householder and k) is int64 with
+torch's shift rules, as before.  See csrc/band_row.cuh
 for the kernels' arithmetic, which tests/test_torch_band_plan.py
 compiles for the host and holds to these plain versions.
 """
@@ -47,7 +50,6 @@ compiles for the host and holds to these plain versions.
 from __future__ import annotations
 
 import ctypes
-import ctypes.util
 import functools
 import math
 import struct
@@ -65,7 +67,8 @@ NAME = "band_search"  # the source, csrc/band_search.cu
 KERNEL_PRO = "band_prologue"  # the launch counts' names
 KERNEL_EPI = "band_epilogue"
 KERNELS = ("band_prologue_kernel", "band_epilogue_kernel",
-           "band_epilogue_rows_kernel")
+           "band_epilogue_rows_kernel")  # the codec's __global__ functions
+CHECK_KERNELS = ("band_acos_probe_kernel",)  # launched by the checks only
 MAX_N = 128  # the widest band the kernels take: the codec's widest
 NCAND = 14  # 12 theta candidates (3 gains x 4 thetas), then 2 noref
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -398,37 +401,138 @@ def xla_log(x):
     return _fma32(e, _LOG_Q2, s)
 
 
+def _bits32(*patterns):
+    """The float32 values of the bit patterns, as Python floats."""
+    return tuple(float(v) for v in np.array(patterns, np.uint32)
+                 .view(np.float32))
+
+
+# glibc 2.36's atanf constants: atan(0.5), atan(1), atan(1.5), atan(inf)
+# in two parts, and the polynomial's 11 coefficients.
+_ATAN_HI = _bits32(0x3EED6338, 0x3F490FDA, 0x3F7B985E, 0x3FC90FDA)
+_ATAN_LO = _bits32(0x31AC3769, 0x33222168, 0x33140FB4, 0x33A22168)
+_AT = _bits32(0x3EAAAAAB, 0xBE4CCCCD, 0x3E124925, 0xBDE38E38, 0x3DBA2E6E,
+              0xBD9D8795, 0x3D886B35, 0xBD6EF16B, 0x3D4BDA59, 0xBD15A221,
+              0x3C8569D7)
+# atan2f's pi, its low part, pi / 4, pi / 2 and 1e-30, and the float32
+# sums it returns of them.
+_PI, _PI_LO, _PI_O_4, _PI_O_2, _TINY = _bits32(
+    0x40490FDB, 0xB3BBBD2E, 0x3F490FDB, 0x3FC90FDB, 0x0DA24260)
+_f = np.float32
+_ATAN_INF = float(_f(_ATAN_HI[3]) + _f(_ATAN_LO[3]))
+_HALF_PI = float(_f(_PI_O_2) + _f(_TINY))
+_FULL_PI = float(_f(_PI) + _f(_TINY))
+_QUARTER_PI = float(_f(_PI_O_4) + _f(_TINY))
+_3QUARTER_PI = float(_f(3.0) * _f(_PI_O_4) + _f(_TINY))
+_FAR = float(_f(_PI_O_2) + _f(0.5) * _f(_PI_LO))  # |y / x| > 2^60
+
+
 @functools.lru_cache(maxsize=None)
-def _libm_atan2f():
-    fn = ctypes.CDLL(ctypes.util.find_library("m")).atan2f
-    fn.restype = ctypes.c_float
-    fn.argtypes = [ctypes.c_float, ctypes.c_float]
-    return np.frompyfunc(fn, 2, 1)
+def _atan_tables(device):
+    return (torch.tensor(_ATAN_HI, dtype=torch.float32, device=device),
+            torch.tensor(_ATAN_LO, dtype=torch.float32, device=device))
+
+
+def atanf_glibc(x):
+    """glibc 2.36's float32 atan (fdlibm's __atanf, s_atanf.c) of a
+    float32 tensor, elementwise, each operation one float32 rounding:
+    csrc/band_row.cuh br::atanf_glibc.  The argument's five ranges
+    (|x| < 0.4375, < 11/16, < 19/16, < 2.4375, beyond) reduce it each
+    their own way before one polynomial; |x| < 2^-29 and |x| >= 2^25
+    return at once."""
+    hx = x.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    a = ix.view(torch.float32)
+    rid = ((ix >= 0x3EE00000).int() + (ix >= 0x3F300000).int()
+           + (ix >= 0x3F980000).int() + (ix >= 0x401C0000).int() - 1)
+    r = torch.where(rid < 0, x, -a.reciprocal())
+    r = torch.where(rid == 2, (a - 1.5) / (1.0 + 1.5 * a), r)
+    r = torch.where(rid == 1, (a - 1.0) / (a + 1.0), r)
+    r = torch.where(rid == 0, (2.0 * a - 1.0) / (2.0 + a), r)
+    z = r * r
+    w = z * z
+    t = _AT
+    s1 = z * (t[0] + w * (t[2] + w * (t[4] + w * (t[6] + w * (
+        t[8] + w * t[10])))))
+    s2 = w * (t[1] + w * (t[3] + w * (t[5] + w * (t[7] + w * t[9]))))
+    xs = r * (s1 + s2)
+    hi, lo = (v[rid.clamp_min(0).long()] for v in _atan_tables(x.device))
+    v = hi - ((xs - lo) - r)
+    out = torch.where(rid < 0, r - xs, torch.where(hx < 0, -v, v))
+    out = torch.where(ix < 0x31000000, x, out)
+    out = torch.where(ix >= 0x4C000000,
+                      torch.where(hx > 0, _ATAN_INF, -_ATAN_INF), out)
+    return torch.where(ix > 0x7F800000, x + x, out)
+
+
+def atan2f_glibc(y, x):
+    """glibc 2.36's float32 atan2 (fdlibm's __ieee754_atan2f,
+    e_atan2f.c), the atan2f that XLA:CPU calls in JAX's arccos, of
+    float32 tensors, elementwise: csrc/band_row.cuh br::atan2f_glibc.
+    atan(|y / x|) moved to the quadrant of (x, y), after NaNs, x = 1,
+    zeros and infinities, which take their own values."""
+    hx, hy = x.view(torch.int32), y.view(torch.int32)
+    ix, iy = hx & 0x7FFFFFFF, hy & 0x7FFFFFFF
+    m = ((hy >> 31) & 1) | ((hx >> 30) & 2)  # 2 sign(x) + sign(y)
+    k = (iy - ix) >> 23
+    z = atanf_glibc((y / x).abs())
+    z = torch.where((hx < 0) & (k < -60), 0.0, z)
+    z = torch.where(k > 60, _FAR, z)
+    out = torch.where(m == 2, _PI - (z - _PI_LO), (z - _PI_LO) - _PI)
+    out = torch.where(m == 1, -z, out)
+    out = torch.where(m == 0, z, out)
+    neg = lambda v, cond: torch.where(cond, -v, v)
+    yinf, xinf = iy == 0x7F800000, ix == 0x7F800000
+    out = torch.where(yinf, neg(torch.full_like(y, _HALF_PI), hy < 0), out)
+    both = torch.where(m < 2, _QUARTER_PI, _3QUARTER_PI)
+    edge = torch.where(m < 2, 0.0, _FULL_PI)
+    out = torch.where(xinf, neg(torch.where(yinf, both, edge), (m & 1) == 1),
+                      out)
+    out = torch.where(ix == 0, neg(torch.full_like(y, _HALF_PI), hy < 0),
+                      out)
+    out = torch.where(iy == 0, torch.where(
+        m < 2, y, neg(torch.full_like(y, _FULL_PI), m == 3)), out)
+    out = torch.where(hx == 0x3F800000, atanf_glibc(y), out)
+    return torch.where((ix > 0x7F800000) | (iy > 0x7F800000), x + y, out)
 
 
 def acos_xla(c):
-    """JAX's arccos of float32 values in [-1, 1] as XLA computes it,
-    atan2(sqrt((1 - c)(1 + c)), c), with the platform's float32 atan2f:
-    glibc's on the CPU (the one XLA:CPU calls; torch's and numpy's
-    differ from it in the last bit of about one value in six), torch's
-    (CUDA's atan2f) on the card."""
-    s = torch.sqrt((1.0 - c) * (c + 1.0))
-    if c.device.type != "cpu":
-        return torch.atan2(s, c)
-    out = _libm_atan2f()(s.numpy(), c.numpy())
-    return torch.from_numpy(np.asarray(out, np.float32).reshape(c.shape))
+    """JAX's arccos of float32 values in [-1, 1] as XLA:CPU computes it,
+    atan2(sqrt((1 - c)(1 + c)), c) with glibc's float32 atan2f
+    (`atan2f_glibc`; torch's atan2, numpy's and CUDA's differ from it in
+    the last bit of some values), on any device: what the band_prologue
+    kernel computes (`acos_xla_cuda` runs it alone).  The square root is
+    taken in float64 and rounded to float32, which is the correctly
+    rounded float32 root: torch's float32 sqrt on the CPU is not (it
+    misses in the last bit on some values near c = +-1)."""
+    s = torch.sqrt(((1.0 - c) * (c + 1.0)).double()).float()
+    return atan2f_glibc(s, c)
 
 
 def node_sum(v):
-    """The float32 sums of the rows of v (m, L) in XLA:CPU's order: for
-    L <= 32 one chain from element 0 up; longer rows padded with zeros
-    to a multiple of 32, pad // 2 of them in front (XLA's split of the
-    padding), each chunk of 32 a chain, then the chunk sums in order.
-    Read in JAX's band_search at L = 13..255 nodes."""
+    """The float32 sums of the rows of v (m, L) in XLA:CPU's order, read
+    in JAX's band_search: for L < 16 (13 and 15 nodes) one chain from
+    element 0 up; for 16 <= L <= 32 (27 and 29 nodes) 8 lanes, lane i
+    summing elements i, i + 8, ... of the first 8 floor(L / 8), the
+    lanes halved (i + 4, then + 2, then + 1), then the rest in order;
+    longer rows (61 to 255 nodes) padded with zeros to a multiple of
+    32, pad // 2 of them in front (XLA's split of the padding), each
+    chunk of 32 a chain, then the chunk sums in order."""
     m, L = v.shape
     acc = v.new_zeros(m)
-    if L <= CHUNK:
+    if L < 16:
         for j in range(L):
+            acc = acc + v[:, j]
+        return acc
+    if L <= CHUNK:
+        nv = L // 8
+        part = v.new_zeros(m, 8)
+        for k in range(nv):
+            part = part + v[:, 8 * k:8 * k + 8]
+        for h in (4, 2, 1):
+            part = part[:, :h] + part[:, h:2 * h]
+        acc = part[:, 0]
+        for j in range(8 * nv, L):
             acc = acc + v[:, j]
         return acc
     nc = -(-L // CHUNK)
@@ -622,30 +726,28 @@ def _fast_rate(y, k, n_eff, n):
     return torch.where(k == 0, 0.0, rate)
 
 
-def _select(best_cost, cost, ok, isnr):
-    """The sequential `better` selection of the JAX scan, in closed form.
-
-    The scan starts from the initial candidate (index -1, cost
-    best_cost) and lets candidate c (in order) replace the best when it
-    is ok and its cost is below the best's (theta: `<`) or not above it
-    (noref: `<=`); a NaN never compares true.  So the best cost ends at
-    the minimum, the first candidate to reach it (the initial one
-    first) becomes the best there, and after it only noref candidates
-    of equal cost replace it: the winner is the last such noref
-    candidate, else the first to reach the minimum.  A NaN initial cost
-    is never replaced.  cost/ok/isnr: (C, m); returns the winner per
-    row, -1 for the initial candidate."""
-    C = cost.shape[0]
-    cidx = torch.arange(C, device=cost.device)[:, None]
-    valid = ok & ~torch.isnan(cost)
-    mn = torch.minimum(best_cost,
-                       torch.where(valid, cost, math.inf).amin(0))
-    at_min = valid & (cost == mn)
-    first = torch.where(at_min, cidx, C).amin(0)
-    first = torch.where(best_cost == mn, -1, first)
-    last_nr = torch.where(at_min & isnr & (cidx > first), cidx, -1).amax(0)
-    win = torch.where(last_nr >= 0, last_nr, first)
-    return torch.where(torch.isnan(best_cost), -1, win)
+def _select(best_cost, cost, cost_y, ok, isnr):
+    """JAX's scan over the candidates, in order: the best cost starts at
+    the initial candidate's (index -1, best_cost), and candidate c
+    replaces it when ok and its cost is below it (theta: `<`) or not
+    above it (noref: `<=`); a NaN never compares true.  Returns (win,
+    win_y) per row: the last candidate to replace the best, and the last
+    whose cost_y passes the same test against the best cost before it.
+    XLA computes `better` once a carried output, each fusion with its
+    own rounding of the cost: the inter scan's fusion that carries the
+    pulses rounds lam rate before adding it (cost_y), every other
+    fusion contracts it (cost).  cost/cost_y/ok/isnr: (C, m)."""
+    b = best_cost
+    win = torch.full_like(best_cost, -1, dtype=torch.int64)
+    win_y = win
+    for c in range(cost.shape[0]):
+        nr = isnr[c]
+        take_y = ok[c] & torch.where(nr, cost_y[c] <= b, cost_y[c] < b)
+        take = ok[c] & torch.where(nr, cost[c] <= b, cost[c] < b)
+        win_y = torch.where(take_y, c, win_y)
+        win = torch.where(take, c, win)
+        b = torch.where(take, cost[c], b)
+    return win, win_y
 
 
 def _take(a, win):
@@ -897,8 +999,10 @@ def band_epilogue_plain(y_c, cos_dist, ok_p, cf, ci, rf, lam, n,
         rate = _fast_rate(y_c.reshape(C * m, n), c_k.reshape(-1), n_eff,
                           n).view(C, m)
     rate = rate + torch.where(isnr, 0.0, trate)
-    cost = _fma32(rate, float(np.float32(lam)), dist)
-    win = _select(dist0, cost, c_ok, isnr.expand(C, m))
+    lam32 = float(np.float32(lam))
+    cost = _fma32(rate, lam32, dist)
+    cost_y = cost if is_keyframe else dist + rate * lam32
+    win, win_y = _select(dist0, cost, cost_y, c_ok, isnr.expand(C, m))
     sel = win >= 0
     best_dist = torch.where(sel, _take(dist_kept, win), dist0)
     noref = torch.where(sel, _take(isnr.expand(C, m), win).long(),
@@ -907,7 +1011,7 @@ def band_epilogue_plain(y_c, cos_dist, ok_p, cf, ci, rf, lam, n,
     best_itheta = torch.where(sel, _take(c_j, win), -1 if is_keyframe else 0)
     best_ts = torch.where(sel, _take(c_ts, win), 0)
     best_k = torch.where(sel, _take(c_k, win), 0)
-    best_y = torch.where(sel[:, None], _take(y_c, win), 0)
+    best_y = torch.where((win_y >= 0)[:, None], _take(y_c, win_y), 0)
     skip_diff = skip_dist - best_dist
     # int16 pulse transport: |y[i]| <= k, so one bound check keeps the
     # packing exact (the host searches the impossible overflow itself).
@@ -926,13 +1030,15 @@ _PRO_ARGTYPES = ([_P, _P, ctypes.c_longlong] + [_P] * 6 + [_I, _I, _I, _F]
                  + [ctypes.c_longlong] * 2 + [_P] * 7)
 _EPI_ARGTYPES = ([_P] * 7 + [_I, _P, _I, _P, ctypes.c_longlong, _P]
                  + [_I] * 7 + [_F] + [_P] * 4)
+_PROBE_ARGTYPES = [_P, _P, ctypes.c_longlong, _P]
 
 
 def build():
     """Build (first use) and load csrc/band_search.cu; returns the
     library."""
     return _build.load(NAME, {"band_prologue": _PRO_ARGTYPES,
-                              "band_epilogue": _EPI_ARGTYPES})
+                              "band_epilogue": _EPI_ARGTYPES,
+                              "band_acos_probe": _PROBE_ARGTYPES})
 
 
 def _need(name, t, dtype, shape, dev):
@@ -1040,6 +1146,26 @@ def band_epilogue_cuda(y_c, cos_dist, ok_p, cf, ci, rf, lam, n, k1_cdf,
     devstats.launch(KERNEL_EPI)
     _build.check(err, KERNEL_EPI)
     return ints, y, skip_diff
+
+
+def acos_xla_cuda(c):
+    """The band_prologue kernel's arccos (csrc/band_row.cuh br::acos_xla)
+    of a float32 CUDA tensor, elementwise, in a launch of its own: the
+    check that holds the kernel's arccos to `acos_xla`.  Not on the
+    codec's path, so not counted."""
+    if c.device.type != "cuda" or c.dtype != torch.float32:
+        raise ValueError("acos_xla_cuda takes a float32 CUDA tensor, got %s "
+                         "on %s" % (c.dtype, c.device))
+    c = c.contiguous()
+    out = torch.empty_like(c)
+    if c.numel() == 0:
+        return out
+    lib = build()
+    with torch.cuda.device(c.device):
+        err = lib.band_acos_probe(c.data_ptr(), out.data_ptr(), c.numel(),
+                                  _stream(c.device))
+    _build.check(err, "band_acos_probe")
+    return out
 
 
 def band_prologue(dflat, mdflat, base, tabsel, tab, qmtab, q0, beta15, lam,

@@ -70,13 +70,29 @@ def _rsqrt_seed(device):
 
 def _fma32(a, b, c):
     """The fused multiply-add a * b + c of float32 tensors (b and c may be
-    floats that are float32 values): the product is exact in float64, so
-    the result is rounded once to float32 wherever the float64 sum is
-    exact, and otherwise differs from one rounding only where that sum
-    lands on a float32 midpoint (about one case in 2^29)."""
+    floats that are float32 values), rounded once to float32, as the
+    hardware FMAs that XLA:CPU contracts into and the card's fmaf.  The
+    product is exact in float64, and the float64 sum rounded to float32
+    is the one rounding of the exact value except where that sum lands
+    on a float32 midpoint (or in float32's subnormal range) while it was
+    inexact: there the sum is rounded to odd (its exact error, by
+    TwoSum, steps a sum whose last bit is even one ulp toward the
+    error) before the float32 rounding, which is then correct because
+    53 >= 2 x 24 + 2."""
+    a = a.double()
     b = b.double() if torch.is_tensor(b) else b
     c = c.double() if torch.is_tensor(c) else c
-    return (a.double() * b + c).float()
+    p = a * b
+    s = p + c
+    mid = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    near = mid | ((s.abs() < 2.0 ** -125) & (s != 0))
+    if bool(near.any()):
+        bv = s - p
+        err = (p - (s - bv)) + (c - bv)
+        even = (s.view(torch.int64) & 1) == 0
+        step = near & even & (err != 0)
+        s = torch.where(step, torch.nextafter(s, err * math.inf), s)
+    return s.float()
 
 
 def _rsqrt(x):
@@ -129,10 +145,9 @@ def ordered_dot(a, b):
     m, n = a.shape
     if n > CHUNK:
         return ordered_sum(a * b)
-    prod = a.double() * b.double()  # exact: each step is _fma32's
     acc = a.new_zeros(m)
     for j in range(n):
-        acc = (prod[:, j] + acc).float()
+        acc = _fma32(a[:, j], b[:, j], acc)
     return acc
 
 
@@ -165,12 +180,17 @@ def pulse_loop_plain(x, yp, xy, yy, i, kf, rdo_pulses, norm_1, rate_pen,
         phase2 = i >= (kf - rdo_pulses.float())
         txy = xy[:, None] + x
         tyy = yy[:, None] + 2.0 * yp + 1.0
-        score1 = (txy * txy) / tyy
-        small = tyy <= 16.0
-        tidx = tyy.clamp(1.0, 16.0).long() - 1
-        tyy_r = torch.where(small, rsq[tidx], _rsqrt(tyy.clamp_min(1.0)))
-        score2 = _fma32(2.0 * txy * norm_1[:, None], tyy_r, -rate_pen)
-        score = torch.where(phase2[:, None], score2, score1)
+        score = (txy * txy) / tyy
+        # The rate penalised score, on the rows that take it and still
+        # take pulses (a row's other scores change nothing).
+        r2 = torch.nonzero(phase2 & active)[:, 0]
+        if r2.numel():
+            txy2, tyy2 = txy[r2], tyy[r2]
+            tidx = tyy2.clamp(1.0, 16.0).long() - 1
+            tyy_r = torch.where(tyy2 <= 16.0, rsq[tidx],
+                                _rsqrt(tyy2.clamp_min(1.0)))
+            score[r2] = _fma32(2.0 * txy2 * norm_1[r2, None], tyy_r,
+                               -rate_pen[r2])
         score = torch.where(lane_ok, score, -math.inf)
         pos = score.argmax(-1)
         xadd = x.gather(1, pos[:, None])[:, 0]

@@ -17,11 +17,17 @@ cost into, XLA's rewrite of the correlation's quotient, its folded
 theta scale, its own float32 log (`xla_log`), glibc's scalar atan2f in
 its arccos (a jitted jnp.arccos alone, over an array, vectorizes into
 another atan2 and differs in about 0.2% of values, so acos_xla is held
-only through band_search), and its order of the rate trees' node sums.
+here only through band_search, and to glibc's atan2f in
+tests/test_torch_atan2.py), and its order of the rate trees' node sums.
 Computed with torch's log, acos and sums and without the contractions,
 every case fails: skip_diff differs from JAX's in 26, 26, 27 and 35 of
 these 256 inter rows and 3, 5, 9 and 4 keyframe rows at n = 8, 15, 32
 and 128 (ints and y equal).  xla_log is also held to JAX's jnp.log alone.
+
+The candidates' costs themselves reach no output but through the
+choice, so ties are built: rows and rate multipliers at which two
+candidates' costs lie within an ulp (`test_cost_ties_equal_jax`), where
+XLA's two roundings of the cost and the order of its rate sums decide.
 """
 
 import functools
@@ -63,51 +69,66 @@ def _rows(n, is_keyframe, seed):
     return clip(X), clip(R), q0, beta15
 
 
-@functools.lru_cache(maxsize=None)
-def _jax(n, is_keyframe):
-    """JAX's band_search on _rows(n, is_keyframe), through its gather
+def _jax_search(rows, n, is_keyframe, lam=OD_PVQ_LAMBDA):
+    """JAX's band_search on rows (X, R, q0, beta15), through its gather
     interface with the identity layout (row i at dflat[i n : i n + n])."""
-    X, R, q0, beta15 = _rows(n, is_keyframe, n + 7 * is_keyframe)
+    X, R, q0, beta15 = rows
+    m = X.shape[0]
     _, cw = _cdfs(is_keyframe)
     with jax.enable_x64(True):
         out = JPS.band_search(
             jnp.asarray(X.ravel()), jnp.asarray(R.ravel()),
-            jnp.arange(M, dtype=jnp.int32) * n, jnp.zeros(M, jnp.int32),
+            jnp.arange(m, dtype=jnp.int32) * n, jnp.zeros(m, jnp.int32),
             jnp.arange(n, dtype=jnp.int32)[None],
             jnp.full((1, n), 16, jnp.int32), jnp.asarray(q0),
-            jnp.asarray(beta15), jnp.float32(OD_PVQ_LAMBDA), n, n + 64,
+            jnp.asarray(beta15), jnp.float32(lam), n, n + 64,
             k1_cdf=jnp.asarray(cw.pvq_k1_cdf, jnp.int32),
             split_cdf=jnp.asarray(cw.pvq_split_cdf, jnp.int32),
             is_keyframe=is_keyframe)
     return [np.asarray(o) for o in out]
 
 
-def _port(n, is_keyframe):
-    X, R, q0, beta15 = _rows(n, is_keyframe, n + 7 * is_keyframe)
+def _port_search(rows, n, is_keyframe, lam=OD_PVQ_LAMBDA):
+    X, R, q0, beta15 = rows
+    m = X.shape[0]
     _, cw = _cdfs(is_keyframe)
     out = PS.band_search(
         torch.from_numpy(X.ravel()), torch.from_numpy(R.ravel()),
-        torch.arange(M, dtype=torch.int32) * n,
-        torch.zeros(M, dtype=torch.int32),
+        torch.arange(m, dtype=torch.int32) * n,
+        torch.zeros(m, dtype=torch.int32),
         torch.arange(n, dtype=torch.int32)[None],
         torch.full((1, n), 16, dtype=torch.int32), torch.from_numpy(q0),
-        torch.from_numpy(beta15), OD_PVQ_LAMBDA, n, n + 64,
+        torch.from_numpy(beta15), lam, n, n + 64,
         k1_cdf=torch.from_numpy(np.asarray(cw.pvq_k1_cdf, np.int32)),
         split_cdf=torch.from_numpy(np.asarray(cw.pvq_split_cdf, np.int32)),
         is_keyframe=is_keyframe)
     return [o.numpy() for o in out]
 
 
-@pytest.mark.parametrize("is_keyframe", [False, True])
-@pytest.mark.parametrize("n", [8, 15, 32, 128])
-def test_band_search_equals_jax_bit_for_bit(n, is_keyframe):
-    want = _jax(n, is_keyframe)
-    got = _port(n, is_keyframe)
+@functools.lru_cache(maxsize=None)
+def _jax(n, is_keyframe):
+    return _jax_search(_rows(n, is_keyframe, n + 7 * is_keyframe), n,
+                       is_keyframe)
+
+
+def _port(n, is_keyframe):
+    return _port_search(_rows(n, is_keyframe, n + 7 * is_keyframe), n,
+                        is_keyframe)
+
+
+def _assert_equal(got, want):
     for name, g, w in zip(("ints", "y", "skip_diff"), got, want):
         assert g.dtype == w.dtype, name
         if g.dtype == np.float32:
             g, w = g.view(np.int32), w.view(np.int32)
         np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("is_keyframe", [False, True])
+@pytest.mark.parametrize("n", [8, 15, 32, 128])
+def test_band_search_equals_jax_bit_for_bit(n, is_keyframe):
+    want = _jax(n, is_keyframe)
+    _assert_equal(_port(n, is_keyframe), want)
     ints, _, sd = want
     # The rows reach what the test is for: sums past 2^24, k = 0 rows,
     # the noref and (inter) theta paths, NaN skip distortions.
@@ -115,6 +136,40 @@ def test_band_search_equals_jax_bit_for_bit(n, is_keyframe):
     assert (ints[:, 0] == 1).any() and (is_keyframe or (ints[:, 0] == 0)
                                         .any())
     assert is_keyframe or np.isnan(sd).any()
+
+
+# Inter rows of _rows(n, False, 3) and rate multipliers (float32 bits)
+# at which two candidates' costs lie within an ulp of each other, found
+# by scanning lam across the crossings of each row's candidate costs:
+# (n, row, lam, the row's pulses decided by the cost's second form).
+_TIES = [(8, 37, 0x3E2C5CF0, True), (8, 43, 0x3DC593C4, True),
+         (15, 33, 0x3E69FDF7, True), (15, 70, 0x3EB9520F, True),
+         (15, 33, 0x3D800218, False), (32, 32, 0x3EBF41F1, True),
+         (32, 32, 0x3EE0B7C8, True), (128, 33, 0x3DAC54FD, True),
+         (128, 36, 0x3E19372C, True)]
+
+
+@pytest.mark.parametrize("n,row,lam_bits,y_tie", _TIES)
+def test_cost_ties_equal_jax(n, row, lam_bits, y_tie, monkeypatch):
+    """At one-ulp ties in cost, every output of all 256 rows equals
+    JAX's.  XLA decides `better` once a carried output, each fusion with
+    its own rounding of dist + lam rate: fma(lam, rate, dist) for the
+    ints, the cost and the distortion, dist + round(lam rate) in the
+    inter fusion that carries the pulses.  Where y_tie the two forms
+    pick different candidates, and the port with one form gets the
+    row's pulses wrong.  (15, 33) at 0x3D800218 is a tie that the order
+    of the 27-node rate sums decides (XLA sums 16 to 32 nodes in 8
+    lanes: `node_sum`)."""
+    lam = float(np.uint32(lam_bits).view(np.float32))
+    rows = _rows(n, False, 3)
+    want = _jax_search(rows, n, False, lam)
+    _assert_equal(_port_search(rows, n, False, lam), want)
+    if y_tie:
+        select = BK._select
+        monkeypatch.setattr(BK, "_select", lambda best, cost, cost_y, ok,
+                            isnr: select(best, cost, cost, ok, isnr))
+        one = _port_search([a[row:row + 1] for a in rows], n, False, lam)
+        assert not np.array_equal(one[1][0], want[1][row])
 
 
 def test_xla_log_equals_jax():

@@ -14,10 +14,11 @@ at n = 8, 15, 32 and 128, inter and keyframe rows, 2,048 rows each:
 magnitudes from tens to 32,767 (sums past 2^24), rows of zeros (zero
 gains, k = 0), zero references, quantizers over two decades, both
 betas, and the codeword-rate trees of the frame-start CDF tables; at n =
-15 also the fast rate model (no CDF tables).  The host build takes
-glibc's atan2f, as the plain version does on the CPU, so every value
-compared is a float32 bit pattern or an integer and the tolerance is
-zero.  The host build runs the lane loops in one thread
+15 also the fast rate model (no CDF tables).  The header writes out its
+one libm function, glibc's atan2f (br::atan2f_glibc), and its fused
+multiply-adds are fmaf, rounded once, as the plain versions' are, so
+every value compared is a float32 bit pattern or an integer and the
+tolerance is zero.  The host build runs the lane loops in one thread
 (br::SerialLanes); the kernels, which run them over a warp, run only on
 a card (tests/test_torch_cuda.py).
 """
