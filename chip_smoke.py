@@ -5,13 +5,18 @@ Usage, from the root of a checkout, on a machine with a CUDA card, the
 CUDA toolkit (nvcc) and g++:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab PARENT   # phases 1-2 only, parent vs this
+    python3 chip_smoke.py --ab PARENT [--rounds R]  # phases 1-2, band cases
 
 With --ab, PARENT is another checkout (at least its daala_tpu_torch/
-csrc/); phase 2, and phase 2d's sad_fields cases, run with its
-lap_frame.cu, dct_frame.cu and sad_fields.cu (where it has one) and
-with this tree's, in turns (parent, change, change, parent) in one
-process on one card, and print each case's device time per turn.
+csrc/); phase 2, and phase 2d's sad_fields, band_prologue and
+band_epilogue cases, run with its lap_frame.cu, dct_frame.cu,
+sad_fields.cu and band_search.cu (where it has them) and with this
+tree's, in R rounds (default 1) of turns (parent, change, change,
+parent) in one process on one card, and print each case's device time
+per turn and each side's median and range; the band cases take the
+calls of phase 3c's traced frames, captured first with this tree, and
+print each epilogue call's share of ok candidates.  Beside them, both
+trees' band kernels' blocks an SM.
 
 Phases, each printing its lines; any failure raises and exits nonzero:
 
@@ -21,9 +26,10 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    obmc_leaf, pulse_search, band_search, sad_fields; into build/, first
    use only,
    all nvcc runs at once) and prints each build's seconds and ptxas's
-   registers, stack and spills of every kernel instantiation, and, as
-   information, the card's vabsdiff4 issue rate (a probe kernel of
-   independent __vsadu4 chains): what bounds sad_fields in practice.
+   registers, stack and spills of every kernel instantiation, the band
+   kernels' blocks an SM (the occupancy API), and, as information, the
+   card's vabsdiff4 issue rate (a probe kernel of independent __vsadu4
+   chains): what bounds sad_fields in practice.
 2. Kernel vs plain PyTorch version, on the card, at the 1080p encoder's
    shapes: lap_frame forward and inverse on a (1088, 1920) luma plane
    (superblock 64) and a (544, 960) chroma plane (superblock 32);
@@ -61,7 +67,9 @@ Phases, each printing its lines; any failure raises and exits nonzero:
    count printed beside its time), band_prologue and band_epilogue
    (csrc/band_search.cu, the rest of band_search before and after its
    pulse search) against band_prologue_plain and band_epilogue_plain on
-   the same calls' arguments, and sad_fields (csrc/sad_fields.cu,
+   the same calls' arguments (their bound by band_work, the nodes that
+   code counted from each call's pulses, and beside it the first
+   design's count), and sad_fields (csrc/sad_fields.cu,
    the SAD fields of models/mefield.py) on the 1080p translation pair
    at r = 16, as one tile and as the 2 x 2 tiles of phase 9's mesh.
    Untimed: the prologue's arccos (csrc/band_row.cuh br::acos_xla,
@@ -501,9 +509,12 @@ SM_INT32_LANES = 132 * 64
 
 def bound(nbytes, ops, rate="ops_per_s"):
     """(ms, "bytes" or "operations") of a call that moves nbytes and
-    does ops operations of the type that RATES[rate] counts."""
+    does ops operations of the type that RATES[rate] counts, or, where
+    ops is a dict {rate: operations}, operations of several types, which
+    the card runs on separate lanes (the least time is the largest)."""
     b_ms = nbytes / RATES["bytes_per_s"] * 1e3
-    o_ms = ops / RATES[rate] * 1e3
+    ops = ops if isinstance(ops, dict) else {rate: ops}
+    o_ms = max(v / RATES[k] * 1e3 for k, v in ops.items())
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -635,6 +646,9 @@ def phase_environment(torch):
         for fn, regs, stack, st, ld in _build.ptxas_report(text):
             print("ptxas: %s: %d registers, %d bytes stack, spills %d/%d "
                   "bytes (store/load): %s" % (src, regs, stack, st, ld, fn))
+    print("occupancy: %s blocks an SM (the occupancy API, at each launch's "
+          "block size and shared memory): %s"
+          % (band_kernels.NAME, band_kernels.occupancy()))
     for hi, cells, pairs in (
             (False, True, [(n, n) for n in range(3, 7)]),
             (False, False, [(x, y) for x in range(2, 7) for y in range(2, 7)]),
@@ -761,11 +775,15 @@ def record(torch, res, name, label, kern, plain, work, trace_names,
     r["bound_by"][by] = r["bound_by"].get(by, 0.0) + b_ms
     r["variants"] += 1
     CASES.append((label, k_ms, d_ms, p_ms, b_ms))
+    ops = work[1] if isinstance(work[1], dict) else {
+        work[2] if len(work) > 2 else "ops_per_s": work[1]}
     print("kernel: %-44s max_abs_err %g  kernel %.4f ms  device %s ms "
           "(%d events, %d calls)  plain %.4f ms  bound %.4f ms (%s; %d B, "
-          "%d ops)"
+          "%s)"
           % (label, err, k_ms, "%.4f" % d_ms if d_ms is not None else "none",
-             seen, calls, p_ms, b_ms, by, work[0], work[1]))
+             seen, calls, p_ms, b_ms, by, work[0], ", ".join(
+                 "%d %s" % (v, "float32 ops" if k == "flops_per_s" else
+                            "int32 ops") for k, v in ops.items())))
     if err or not same:
         raise AssertionError("%s differs from its plain version" % label)
 
@@ -831,18 +849,15 @@ def global_names(path):
 
 
 def build_other(root, tag):
-    """Build lap_frame.cu, dct_frame.cu and, where the checkout at `root`
-    has it, sad_fields.cu of that checkout (the same nvcc flags, in
-    parallel) and load them; returns {source: (library, its kernels'
+    """Build lap_frame.cu, dct_frame.cu, sad_fields.cu and band_search.cu
+    of the checkout at `root` (the same nvcc flags, in parallel) and load
+    them with this tree's entries; returns {source: (library, its kernels'
     names)}."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
-    from daala_tpu_torch.ops.cuda import (_build, dct_kernels, lap_kernels,
-                                          sad_kernels)
+    from daala_tpu_torch.ops.cuda import (_build, band_kernels, dct_kernels,
+                                          lap_kernels, sad_kernels)
     csrc = os.path.join(os.path.abspath(root), "daala_tpu_torch", "csrc")
-    mods = [lap_kernels, dct_kernels] + (
-        [sad_kernels] if os.path.exists(os.path.join(
-            csrc, sad_kernels.NAME + ".cu")) else [])
     os.makedirs(BUILD, exist_ok=True)
 
     def one(mod):
@@ -858,39 +873,56 @@ def build_other(root, tag):
                   "%d/%d bytes (store/load): %s"
                   % (tag, mod.NAME, regs, stack, st, ld, fn))
         lib = ctypes.CDLL(so)
-        fn = getattr(lib, mod.NAME)
-        with open(src) as f:
-            text = f.read()
-        decl = text[text.index('extern "C" int %s(' % mod.NAME):]
-        nargs = decl[:decl.index(")")].count(",") + 1
-        if nargs == len(mod._ARGTYPES):
-            fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
-            return mod.NAME, (lib, global_names(src))
-        # A lap_frame.cu from before the tile arguments (origin, plane):
-        # whole planes only, which is what phase 2 gives it.
-        fn.argtypes = mod._ARGTYPES[:6] + mod._ARGTYPES[-2:]
-        fn.restype = ctypes.c_int
+        entries = getattr(mod, "ENTRIES", None) or {mod.NAME: mod._ARGTYPES}
+        for name, argtypes in entries.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        return mod.NAME, (lib, global_names(src))
 
-        class Untiled:
-            def lap_frame(self, src, dst, h, w, sb_x, sb_y, oy, ox, ph, pw,
-                          forward, stream):
-                if (oy, ox, ph, pw) != (0, 0, h, w):
-                    raise ValueError("the parent's lap_frame takes no tile")
-                return fn(src, dst, h, w, sb_x, sb_y, forward, stream)
-        return mod.NAME, (Untiled(), global_names(src))
-
+    mods = (lap_kernels, dct_kernels, sad_kernels, band_kernels)
     with ThreadPoolExecutor(len(mods)) as ex:
         return dict(ex.map(one, mods))
 
 
-def phase_ab(torch, dev, parent):
-    """Phase 2, and phase 2d's sad_fields cases, with the lap_frame.cu,
-    dct_frame.cu and sad_fields.cu of the checkout at `parent` and of
-    this tree, in turns (parent, change, change, parent) in one process
-    on one card, every call with a cold L2; prints each case's device
-    time per turn and, as a line of JSON, all of them.  (pulse_search.cu
-    took another interface before it held the whole search, so it has
-    no turn here.)"""
+def capture_band_calls(torch, dev):
+    """The arguments of every band_prologue and band_epilogue call of a
+    fresh lean encoder's keyframe and first inter frame of phase 3c's
+    clip and preset (the frames that phase 3c traces): [(frame, name,
+    args)]."""
+    from daala_tpu_torch.utils.profile import _encoder, translation_clip
+    frames = translation_clip(nframes=2)
+    calls, out = [], []
+    stop = watch_band_kernels(calls)
+    try:
+        enc = _encoder(dev, False, lean=True)
+        for label, fr in (("keyframe", frames[0]), ("inter", frames[1])):
+            k = len(calls)
+            enc.encode_frame(fr)
+            out += [(label,) + c for c in calls[k:]]
+        torch.cuda.synchronize()
+    finally:
+        stop()
+    return out
+
+
+def phase_ab(torch, dev, parent, rounds=1):
+    """Phase 2, phase 2d's sad_fields cases and its band_prologue and
+    band_epilogue cases, with the lap_frame.cu, dct_frame.cu,
+    sad_fields.cu and band_search.cu of the checkout at `parent` and of
+    this tree, in `rounds` rounds of turns (parent, change, change,
+    parent) in one process on one card, every call with a cold L2;
+    prints each case's device time per turn, each side's median and
+    range, and, as a line of JSON, all of them.  The band cases take the
+    calls of phase 3c's traced frames, captured once with this tree
+    (capture_band_calls), with each epilogue call's ok candidates; each
+    turn holds each kernel to its plain version bit for bit.  Beside
+    them: both trees' band kernels' blocks an SM (the occupancy API).
+    The parent's sources must take this tree's entries (its
+    band_search.cu exports band_occupancy).  (pulse_search.cu
+    took another interface before it held the whole search, so it has no
+    turn here.)"""
+    import ctypes
+    from daala_tpu_torch.ops.cuda import band_kernels as BK
     from daala_tpu_torch.ops.cuda import sad_kernels as SK
     global TIME_PLAIN
     from daala_tpu_torch.ops.cuda import _build
@@ -898,21 +930,41 @@ def phase_ab(torch, dev, parent):
     mine = {name: (_build.load(name, {}), tuple(
         global_names(os.path.join(_build.CSRC, name + ".cu"))))
         for name in other}
+    band_calls = capture_band_calls(torch, dev)
+    print("ab: %d band kernel calls captured from phase 3c's traced frames"
+          % len(band_calls))
+    out = (ctypes.c_int * len(BK.OCCUPANCY))()
+    _build.check(other[BK.NAME][0].band_occupancy(ctypes.addressof(out)),
+                 "band_occupancy")
+    print("ab: parent's blocks an SM: %s" % dict(zip(BK.OCCUPANCY, out)))
+    print("ab: change's blocks an SM: %s" % BK.occupancy())
     TIME_PLAIN = False
     turns = []
-    for tag, libs in (("parent", other), ("change", mine),
-                      ("change", mine), ("parent", other)):
-        for name, (lib, _) in libs.items():
-            _build._LIBS[name] = lib
-        del CASES[:]
-        print("ab: turn %d, %s" % (len(turns) + 1, tag))
-        names = {name: kn for name, (_, kn) in libs.items()}
-        phase_kernels(torch, dev, {}, names)
-        if SK.NAME in names:
+    try:
+        for tag, libs in rounds * (("parent", other), ("change", mine),
+                                   ("change", mine), ("parent", other)):
+            for name, (lib, _) in libs.items():
+                _build._LIBS[name] = lib
+            del CASES[:]
+            print("ab: turn %d, %s" % (len(turns) + 1, tag))
+            names = {name: kn for name, (_, kn) in libs.items()}
+            phase_kernels(torch, dev, {}, names)
             sad_kernel_cases(torch, dev, {}, names[SK.NAME])
-        turns.append((tag, list(CASES)))
-    for name, (lib, _) in mine.items():
-        _build._LIBS[name] = lib
+            band_kernel_cases(torch, {}, band_calls, names[BK.NAME])
+            turns.append((tag, list(CASES)))
+    finally:
+        for name, (lib, _) in mine.items():
+            _build._LIBS[name] = lib
+    oks = {band_case(label, name, args): ok_share(args)
+           for label, name, args in band_calls if name == "band_epilogue"}
+
+    def side(dev_us, tag):
+        got = [v for t, v in zip(turns, dev_us) if t[0] == tag and v]
+        if not got:
+            return "none"
+        return "%.3f (%.3f-%.3f)" % (float(np.median(got)), min(got),
+                                     max(got))
+
     rows = []
     for i, case in enumerate(turns[0][1]):
         dev_us = [t[1][i][2] * 1e3 if t[1][i][2] is not None else None
@@ -920,14 +972,15 @@ def phase_ab(torch, dev, parent):
         ms = [t[1][i][1] for t in turns]
         bound_us = None if case[4] != case[4] else case[4] * 1e3  # NaN
         rows.append({"case": case[0], "bound_us": bound_us,
-                     "device_us": dev_us, "ms": ms})
-        print("ab: %-28s bound %s us  device us parent %s / change %s  "
-              "wrapper ms %s" % (
+                     "device_us": dev_us, "ms": ms,
+                     "ok": oks.get(case[0])})
+        print("ab: %-28s bound %s us  device us, median (range) of %d "
+              "turns: parent %s / change %s%s  turns %s  wrapper ms %s" % (
                   case[0], "%7.3f" % bound_us if bound_us else "   none",
+                  2 * rounds, side(dev_us, "parent"), side(dev_us, "change"),
+                  "  ok candidates " + oks[case[0]] if case[0] in oks else "",
                   ", ".join("%.3f" % v if v is not None else "none"
-                            for v in (dev_us[0], dev_us[3])),
-                  ", ".join("%.3f" % v if v is not None else "none"
-                            for v in (dev_us[1], dev_us[2])),
+                            for v in dev_us),
                   " ".join("%.4f" % v for v in ms)))
     print("ab: " + json.dumps({"turns": [t[0] for t in turns],
                                "cases": rows}))
@@ -1371,10 +1424,14 @@ def phase_band_acos(torch, dev):
                              "%d of %d c" % (off, n))
 
 
-def band_work(name, args):
-    """(bytes, ops) of band_prologue or band_epilogue on its arguments,
-    operations as int32-lane operations counted from the code
-    (csrc/band_row.cuh), a least count.
+def ok_candidates(args):
+    """The candidates of an epilogue call that the prologue marked ok
+    (ci[2]): the only ones that can win."""
+    return int((args[4][2] != 0).sum())
+
+
+def band_bytes(name, args):
+    """Bytes of band_prologue or band_epilogue on its arguments.
 
     The prologue reads each row's n gathered coefficients (and, inter,
     reference coefficients) and its descriptors (base, table id,
@@ -1383,36 +1440,175 @@ def band_work(name, args):
     reflected row and x16, keyframe x16), the C candidates' 11 fields
     (44 bytes) and the row's 3 (12 bytes).  The lane flags and each
     candidate's row index follow from the candidate, n and m, so they
-    are not counted.  Operations: per lane 12 (the gather's add and
-    compares, the QM product and shift, the squares and their sums)
-    and, inter, 24 more (the reference's, the correlation, the argmax,
-    the reflection's product, shift and wrap, the deletion); per
-    pulse-search row n (the conversions it writes); per candidate 60
-    (the fixed-point theta, k and gain chains and the distortion
-    gate).
-
-    The epilogue reads the C candidates' pulses (n int32), cos_dist and
-    ok (5 bytes), their 11 fields (44 bytes), the row's 3 fields, the
-    CDF and node tables once, and writes 6 int32, n int16 and a float32
-    a row.  Operations: per candidate 3 n (|y|, the prefix sums) and 8
-    per node of its split tree (2 n - 1 nodes: the span's count, the
-    termination and blocked flags, the node's kind), a floor that leaves
-    out the costs of the active nodes and the selection."""
+    are not counted.  The epilogue reads every candidate's ok flag (4
+    bytes) and, of the ok ones (ok_candidates, from the call's own
+    flags), the pulses (n int32), cos_dist and the pulse search's ok (5
+    bytes) and the 8 other fields the cost takes (32 bytes: ci[0, 1, 3,
+    4], cf[1:5]), the row's 3 fields, the CDF and node tables once, and
+    writes 6 int32, n int16 and a float32 a row."""
     if name == "band_prologue":
-        dflat, _, base, _, tab, qmtab, _, _, _, n, kf = args
+        _, _, base, _, tab, _, _, _, _, n, kf = args
         m, T = base.shape[0], tab.shape[0]
         C, G = (2, 1) if kf else (14, 2)
-        nbytes = (m * n * 4 * G + 13 * m + 8 * T * n + G * m * n * 4
-                  + 44 * C * m + 12 * m)
-        ops = m * n * (12 if kf else 36) + G * m * n + C * m * 60
-        return nbytes, int(ops)
-    y_c, _, _, cf, ci, rf, _, n, k1, sp, kf = args
+        return (m * n * 4 * G + 13 * m + 8 * T * n + G * m * n * 4
+                + 44 * C * m + 12 * m)
+    y_c, _, _, _, ci, _, _, n, k1, sp, _ = args
     C, m = ci.shape[1:]
     tables = (k1.numel() + sp.numel()) * 4 if k1 is not None else 0
-    nbytes = (C * m * (n * 4 + 5 + 44) + 12 * m + tables
-              + 24 * (4 * n - 4) + m * (24 + 2 * n + 4))
-    ops = C * m * (3 * n + 8 * (2 * n - 1))
-    return nbytes, int(ops)
+    return (4 * C * m + ok_candidates(args) * (n * 4 + 5 + 32) + 12 * m
+            + tables + 16 * (2 * n - 3) + m * (24 + 2 * n + 4))
+
+
+def band_work_floor(name, args):
+    """(bytes, int32 operations) of the count that the first design of
+    the band kernels took for their bound, kept to compare: the bytes of
+    band_bytes but, in the epilogue, every candidate's pulses, cos_dist,
+    ok and 11 fields; per lane 12 (keyframe) or 36 (inter) and per
+    candidate 60 in the prologue; per candidate 3 n and 8 per node of
+    its tree in the epilogue, a floor that leaves out the nodes that
+    code, the scalar chains and every float operation."""
+    nbytes = band_bytes(name, args)
+    if name == "band_prologue":
+        _, _, base, _, _, _, _, _, _, n, kf = args
+        m = base.shape[0]
+        C, G = (2, 1) if kf else (14, 2)
+        return nbytes, int(m * n * (12 if kf else 36) + G * m * n
+                           + C * m * 60)
+    _, _, _, _, ci, _, _, n, _, _, _ = args
+    C, m = ci.shape[1:]
+    nbytes += (C * m - ok_candidates(args)) * (n * 4 + 5 + 32) + 8 * C * m
+    return nbytes, int(C * m * (3 * n + 8 * (2 * n - 1)))
+
+
+# The band kernels' operations, (int32, float32) of each step, counted
+# in csrc/band_row.cuh at the least instruction sequence that computes
+# it: a product of 32-bit operands to 64 bits one multiply, an int64 add,
+# subtract or compare two int32 operations, a shift of an int64 by a
+# constant two and by a variable four, a float32 operation one and a
+# fused multiply-add two, a float32 division eight (a reciprocal, its
+# two Newton steps and the corrected quotient), a square root six, a
+# float64 operation twice a float32 one.
+# - XLA's log (br::log): 33 float32 (the exponent's conversion and add,
+#   the mantissa's test and two adds, x^2 and x^3, nine FMAs, e q1, the
+#   last FMA, add and FMA) and 3 int32 (the bit fields).
+# - floordiv_q: 5 int32 (the remainder's multiply and subtract, two
+#   tests) and 22 float32 (two conversions, the float64 division and
+#   floor, each twice a float32 one).
+# - glibc's atan2f as the prologue reaches it: 69 float32 (the square
+#   root and its argument, 9; the reduction's division and adds, 10;
+#   the polynomial, 22 products and adds, then 3; the quotient y / x,
+#   8; the quadrant's 3; the rest's compares) and 10 int32.
+BAND_OPS = {
+    # Epilogue: a pulse of a tree's lanes (its magnitude, the prefix
+    # sum's int64 add); a node that spans lanes (its pulse count, a
+    # difference of int64 prefix sums, and its two tests); a node that
+    # codes (its CDF indices: a k = 1 leaf's offset and position, a
+    # split's count, bit length, shift, symbol, context and clamps, 12;
+    # two logs; the three CDF values converted, their range and two
+    # clamps, 6; its cost, three at the least; its add into the sum);
+    # a candidate (the rate plus the theta rate, its distortion and
+    # two costs, 16; its step of the row's selection, 4).
+    "epi_lane": (3, 0), "epi_node": (4, 0),
+    "epi_coding": (12 + 2 * 3, 6 + 2 * 33 + 3 + 1), "epi_cand": (4, 16),
+    # Prologue, per lane: keyframe 12 (the gather's add and compares, the
+    # QM product and shift, the squares and their sums), inter 24 more
+    # (the reference's, the correlation, the largest lane, the
+    # reflection's product, shift and wrap, the deletion); per
+    # pulse-search lane written, its conversion.
+    "pro_lane_kf": (12, 0), "pro_lane_inter": (36, 0), "pro_out": (1, 0),
+    # A gain (od_sqrt's bit length, shifts and rsqrt_norm, 48; the
+    # rounded shift, 5) and its companding at beta 1 (256 g + q0 / 2,
+    # 3, and floordiv_q) or 1.5 (od_pow: the bit length and shift, 5,
+    # od_log2's five steps, 25, the beta product, 3, od_exp2, 31, the
+    # shift 2, and floordiv_q).
+    "gain": (53, 0), "compand_b1": (3 + 5, 22), "compand_b15": (66 + 5, 22),
+    # The rest of a keyframe row's chain (the shift, dist0) and an inter
+    # row's: both shifts, the reference gain's split, 10 + 5; the
+    # correlation's shift, 3, and division and clamp, 15; the skip and
+    # initial distortions, 17; the reflection (the bump, 6, od_rcp, 27,
+    # the shifts, 23); theta_on and the theta's terms, 8 and 7; the
+    # arccos (atan2f above); theta_q's FMA, floor and conversion, 4.
+    "row_kf": (5, 3), "row_inter": (15 + 3 + 56 + 8 + 10, 15 + 17 + 7
+                                    + 69 + 4),
+    # A theta candidate: its gain, 5; max_theta, 6; the bounds' two
+    # floors, FMA, add and ceiling, 7 float32 and 3 int32; the theta
+    # sines and cosines (pvq_cos, 15 int32 and 3 float32 each, four);
+    # compute_theta twice (a clamp and the dividend, 4, and
+    # floordiv_q); k_theta twice, 12; the gate and ok, 8; g2, dth and
+    # its conversions, 10; the theta rate (a log, its clamp, conversion
+    # and FMA, 4).  A noref candidate: its gain, 5; k_noref, 12; dth's
+    # pvq_cos; ok, 4; its distortions and conversions, 9; the theta
+    # rate.
+    "cand_theta": (5 + 6 + 3 + 4 * 15 + 2 * (4 + 5) + 12 + 8 + 3,
+                   7 + 4 * 3 + 2 * 22 + 10 + 33 + 4),
+    "cand_noref": (5 + 12 + 15 + 4 + 3, 3 + 9 + 33 + 4),
+}
+
+
+def coding_nodes(y_c, ok, n, C):
+    """The nodes that code over the ok candidates (ok: (C, m) bool) of an
+    epilogue call whose pulses are y_c (C m, n): the plain version's masks
+    (band_kernels._codeword_rate) on the call's own pulses."""
+    import torch
+    from daala_tpu_torch.ops.cuda import band_kernels as BK
+    y, ok = y_c.cpu().view(C, -1, n), ok.cpu()
+    total = 0
+    for nt, part, keep in ((n - 1, y[:C - 2], ok[:C - 2]),
+                           (n, y[C - 2:], ok[C - 2:])):
+        if not keep.any() or nt < 2:
+            continue
+        tg = BK._tree_tensors(nt, 1, "cpu")
+        ya = part.reshape(-1, n)[keep.reshape(-1), :nt].abs().long()
+        csum = torch.cat([torch.zeros_like(ya[:, :1]), ya.cumsum(-1)], -1)
+        base, size = tg["base"], tg["size"]
+        for rows in torch.split(csum, 1 << 14):
+            k = rows[:, base + size] - rows[:, base]
+            term = ((k == 1) & (size <= 16)[None, :]) | (k == 0)
+            blocked = (term.double() @ tg["anc"]) > 0.5
+            total += int(((~blocked) & (k > 0) & (size > 1)[None, :]).sum())
+    return total
+
+
+def band_work(name, args):
+    """(bytes, {rate: operations}) of band_prologue or band_epilogue on
+    its arguments: the bytes of band_bytes, the int32 and float32
+    operations of BAND_OPS's steps.  The epilogue's steps are counted
+    over the ok candidates only (the others cost their flag's test), its
+    nodes that code from the call's own pulses (coding_nodes); every
+    other node of an ok candidate costs its flags.  The prologue's rows take their own gains'
+    companding (beta 1 or 1.5, from the call's flags).  Not counted:
+    loads from shared memory, branches, the selection's row outputs and
+    the fast rate model's sums (no CDF tables: each lane's product and
+    add counted instead)."""
+    nbytes = band_bytes(name, args)
+    ops = np.zeros(2)
+    O = {k: np.array(v, float) for k, v in BAND_OPS.items()}
+    if name == "band_prologue":
+        _, _, base, _, _, _, _, beta15, _, n, kf = args
+        m = base.shape[0]
+        b15 = int(beta15.sum())
+        gains = 1 if kf else 2
+        ops += m * n * O["pro_lane_kf" if kf else "pro_lane_inter"]
+        ops += (1 if kf else 2) * m * n * O["pro_out"]
+        ops += gains * (m * O["gain"] + (m - b15) * O["compand_b1"]
+                        + b15 * O["compand_b15"])
+        ops += m * O["row_kf" if kf else "row_inter"]
+        ops += 2 * m * O["cand_noref"] + (0 if kf else 12 * m
+                                          * O["cand_theta"])
+    else:
+        y_c, _, _, _, ci, _, _, n, k1, _, _ = args
+        C, m = ci.shape[1:]
+        ok = ci[2] != 0
+        ok_th, ok_nr = int(ok[:C - 2].sum()), int(ok[C - 2:].sum())
+        lanes = ok_th * (n - 1) + ok_nr * n
+        ops += (ok_th + ok_nr) * O["epi_cand"] + C * m * np.array([1.0, 0])
+        if k1 is None:
+            ops += lanes * np.array([1.0, 2.0])
+        else:
+            nodes = ok_th * max(n - 2, 0) + ok_nr * (n - 1)
+            ops += lanes * O["epi_lane"] + nodes * O["epi_node"]
+            ops += coding_nodes(y_c, ok, n, C) * O["epi_coding"]
+    return nbytes, {"ops_per_s": int(ops[0]), "flops_per_s": int(ops[1])}
 
 
 def pulse_work(args):
@@ -1648,15 +1844,7 @@ def phase_search_kernels(torch, dev, res, pulse_calls, band_calls):
         raise AssertionError("phase 3c captured no pulse_search or band "
                              "kernel call")
     phase_band_acos(torch, dev)
-    for label, name, args in band_calls:
-        kern, plain = ((BK.band_prologue_cuda, BK.band_prologue_plain)
-                       if name == "band_prologue" else
-                       (BK.band_epilogue_cuda, BK.band_epilogue_plain))
-        n = args[9] if name == "band_prologue" else args[7]
-        m = (args[2] if name == "band_prologue" else args[5]).shape[-1]
-        record(torch, res, name, "%s %s n=%d, %d rows" % (name, label, n, m),
-               lambda: kern(*args), lambda: plain(*args),
-               band_work(name, args), BK.KERNELS)
+    band_kernel_cases(torch, res, band_calls)
     for label, args in pulse_calls:
         n, m = args[0].shape[1], args[1].shape[0]
         nbytes, ops, rate, trips = pulse_work(args)
@@ -1666,6 +1854,43 @@ def phase_search_kernels(torch, dev, res, pulse_calls, band_calls):
                lambda: PK.pulse_search_plain(*args), (nbytes, ops, rate),
                PK.KERNELS)
     sad_kernel_cases(torch, dev, res)
+
+
+def band_kernel_cases(torch, res, band_calls, names=None):
+    """band_prologue and band_epilogue against their plain versions on
+    the card, bit for bit, on each captured call (label, name, args),
+    timed, with the bound of band_work and, beside it, of the first
+    design's count (band_work_floor).  names: the trace names of the
+    kernels, by default the module's."""
+    from daala_tpu_torch.ops.cuda import band_kernels as BK
+    for label, name, args in band_calls:
+        kern, plain = ((BK.band_prologue_cuda, BK.band_prologue_plain)
+                       if name == "band_prologue" else
+                       (BK.band_epilogue_cuda, BK.band_epilogue_plain))
+        case = band_case(label, name, args)
+        work = band_work(name, args)
+        record(torch, res, name, case, lambda: kern(*args),
+               lambda: plain(*args), work, names or BK.KERNELS)
+        floor_ms, floor_by = bound(*band_work_floor(name, args))
+        print("bound: %-44s %.4f ms (%s) by this count; %.4f ms (%s) by "
+              "the first design's count%s [information only]"
+              % (case, bound(*work)[0], bound(*work)[1], floor_ms, floor_by,
+                 "" if name == "band_prologue" else
+                 "; ok candidates %s" % ok_share(args)))
+
+
+def band_case(label, name, args):
+    """The case name of a band kernel call (label, name, args)."""
+    n = args[9] if name == "band_prologue" else args[7]
+    m = (args[2] if name == "band_prologue" else args[5]).shape[-1]
+    return "%s %s n=%d, %d rows" % (name, label, n, m)
+
+
+def ok_share(args):
+    """'k of C m (p%)': an epilogue call's ok candidates."""
+    total = args[4].shape[1] * args[4].shape[2]
+    k = ok_candidates(args)
+    return "%d of %d (%.1f%%)" % (k, total, 100.0 * k / total)
 
 
 def sad_kernel_cases(torch, dev, res, names=None):
@@ -2919,10 +3144,14 @@ def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", metavar="PARENT",
-                    help="only phases 1 and 2 (and 2d's sad_fields "
-                    "cases), with the lap_frame.cu, dct_frame.cu and "
-                    "sad_fields.cu of the checkout PARENT and of this tree "
-                    "in turns (parent, change, change, parent)")
+                    help="only phases 1 and 2 (and 2d's sad_fields and "
+                    "band kernel cases), with the lap_frame.cu, "
+                    "dct_frame.cu, sad_fields.cu and band_search.cu of the "
+                    "checkout PARENT and of this tree in turns (parent, "
+                    "change, change, parent)")
+    ap.add_argument("--rounds", type=int, default=1, metavar="R",
+                    help="with --ab, R rounds of the four turns (default "
+                    "1)")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "daala_tpu_torch")):
         print("chip_smoke.py: daala_tpu_torch/ not found beside this script;"
@@ -2937,7 +3166,7 @@ def main(argv=None):
     dev = resolve("cuda:0")
     phase_environment(torch)
     if args.ab:
-        phase_ab(torch, dev, args.ab)
+        phase_ab(torch, dev, args.ab, args.rounds)
         return 0
     t_start = time.perf_counter()
 

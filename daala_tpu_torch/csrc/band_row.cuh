@@ -1,10 +1,18 @@
-// The PVQ band search's arithmetic around its pulse search, one row (the
-// prologue) or one candidate of a row (the epilogue) at a time, its lane
-// loops through a policy (SerialLanes: one thread; the kernels' WarpLanes:
-// a warp), shared by the CUDA kernels (csrc/band_search.cu) and a host
-// build with g++ (tests/test_torch_band_plan.py), so that what the card
-// runs is what the CPU tests hold bit for bit against the plain versions
-// (ops/cuda/band_kernels.py band_prologue_plain, band_epilogue_plain).
+// The PVQ band search's arithmetic around its pulse search, shared by the
+// CUDA kernels (csrc/band_search.cu) and a host build with g++
+// (tests/test_torch_band_plan.py), so that what the card runs is what the
+// CPU tests hold bit for bit against the plain versions
+// (ops/cuda/band_kernels.py band_prologue_plain, band_epilogue_plain):
+//
+// - the prologue of one row, its lane loops through a policy (SerialLanes:
+//   one thread; the kernel's GroupLanes: a group of 8, 16 or 32 lanes of a
+//   warp), its integer sums fused into three reductions;
+// - the epilogue in stages: a node's CDF symbol (node_term), its cost from
+//   two logs (term_cost), XLA's ordered sums of a candidate's costs over
+//   the list of its coding nodes (rate_chunks; lanes8_part, then
+//   lanes8_rest), a candidate's cost (finish_cand) and a row's decision
+//   (decide_row).  br_epilogue_host runs them in one thread in the order
+//   and grouping in which the kernel's warp runs them.
 //
 // Integers: the plain versions compute in int64 with torch's rules, and so
 // does this header: a left shift by less than 0 or 64 or more gives 0, a
@@ -61,11 +69,30 @@ PS_HD int64_t wrap32(int64_t v) {
 PS_HD int64_t wrap16(int64_t v) {
   return (int64_t)(int16_t)(uint16_t)((uint64_t)v & 0xFFFFu);
 }
+// The magnitude of an int32 as torch's int32 abs gives it (-2^31 stays).
+PS_HD int64_t abs32(int64_t v) { return wrap32(v < 0 ? -v : v); }
 PS_HD int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 PS_HD int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
 PS_HD int64_t floordiv(int64_t a, int64_t b) {
   const int64_t q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+// floordiv where |a| < 2^53 and 0 < b < 2^31, the operands of the gains'
+// companding and of compute_theta: the double quotient of a / b is within
+// 2^-53 |a / b| < 1 of the true one, so its floor is within one of
+// floor(a / b), and the remainder a - q b (exact in int64: |q b| < |a| + b)
+// moves it there.  Elsewhere int64 division.  The same on the card and on
+// the host (IEEE division, rounded to nearest).
+PS_HD int64_t floordiv_q(int64_t a, int64_t b) {
+  constexpr int64_t A = 1LL << 53;
+  if (b <= 0 || b >= (1LL << 31) || a <= -A || a >= A) return floordiv(a, b);
+  int64_t q = (int64_t)floor((double)a / (double)b);
+  const int64_t r = a - q * b;
+  if (r < 0)
+    q--;
+  else if (r >= b)
+    q++;
+  return q;
 }
 // OD_ILOG of the low 32 bits: their bit length.
 PS_HD int64_t ilog(int64_t x) {
@@ -142,10 +169,13 @@ PS_HD int64_t od_pow(int64_t x, int64_t beta) {
   const int64_t logr = qbeta(beta, od_log2(t) + (log2_x - 12) * 32768);
   return x == 0 ? 0 : od_exp2(logr);
 }
+// g is an int32 (a wrapped shift of the root, or the root itself), so
+// 256 g + q0 / 2 is below 2^40 in magnitude; od_pow's result is at most
+// 2^31, so expr + q0 / 2 is below 2^37: floordiv_q is exact for q0 > 0.
 PS_HD int64_t gain_compand(int64_t g, int64_t q0, bool b15) {
-  if (!b15) return floordiv(256 * g + (q0 >> 1), q0);
+  if (!b15) return floordiv_q(256 * g + (q0 >> 1), q0);
   const int64_t expr = shl(od_pow(g, RCP_B15), 5);
-  return floordiv(expr + (q0 >> 1), q0);
+  return floordiv_q(expr + (q0 >> 1), q0);
 }
 // The companded gain and the gain of a row whose squares sum to acc.
 PS_HD void compute_gain(int64_t acc, int64_t q0, bool b15, int64_t bshift,
@@ -173,9 +203,11 @@ PS_HD int64_t max_theta(int64_t qcg, bool b15) {
                                16);
   return wrap32(qcg < 358 ? 1 : ts);
 }
+// The prologue's t is >= 0 (a clamped floor plus 0..3) and mt an int32,
+// so for mt > 0 the dividend lies in [0, 2^47): floordiv_q is exact.
 PS_HD int64_t compute_theta(int64_t t, int64_t mt) {
   t = imin(t, mt - 1);
-  return mt != 0 ? floordiv(32768 * t + (mt >> 1), imax(mt, 1)) : 0;
+  return mt != 0 ? floordiv_q(32768 * t + (mt >> 1), imax(mt, 1)) : 0;
 }
 PS_HD int64_t k_theta(int64_t itheta, int64_t rt0) {
   const int64_t k = imax(1, shr_round(mul(shl32(itheta, 15) - 6554, rt0),
@@ -331,33 +363,32 @@ PS_HD int64_t floor_i(float v) { return v != v ? 0 : (int64_t)floorf(v); }
 
 // ---- a row's lanes ----
 
-// The lane loops of a row go through a policy: SerialLanes runs them in
-// one thread (the host build); csrc/band_search.cu's WarpLanes spreads them
-// over a warp, every lane running the row's scalar code alike.  Integer
-// sums wrap, so they come out the same in any order; a first maximum is
-// the largest value at its lowest index; the ordered float sums stay
-// serial.
+// The prologue's lane loops go through a policy: SerialLanes runs them in
+// one thread (the host build); csrc/band_search.cu's GroupLanes spreads
+// them over a group of lanes, every lane of the group running the row's
+// scalar code alike.  Integer sums wrap, so they come out the same in any
+// order; a first maximum is the largest value at its lowest index.  The
+// independent sums of a row are fused: sums<K> takes K at once (one
+// butterfly of K values on the card), sums_argmax<K> also the first
+// maximum of g.
 struct SerialLanes {
-  // The wrapping sum of f(j) over j < n.
-  template <typename F>
-  PS_HD int64_t sum(int n, F f) const {
-    int64_t s = 0;
-    for (int j = 0; j < n; j++) s = add(s, f(j));
-    return s;
+  template <int K, typename F>
+  PS_HD void sums(int n, F f, int64_t *s) const {
+    for (int q = 0; q < K; q++) s[q] = 0;
+    for (int j = 0; j < n; j++) {
+      int64_t v[K];
+      f(j, v);
+      for (int q = 0; q < K; q++) s[q] = add(s[q], v[q]);
+    }
   }
-  template <typename F>
-  PS_HD bool any(int n, F f) const {
-    bool a = false;
-    for (int j = 0; j < n; j++) a = a || f(j);
-    return a;
-  }
-  // The lowest j at which f(j) (>= 0) is largest.
-  template <typename F>
-  PS_HD int argmax(int n, F f) const {
+  // The sums, and the lowest j at which g(j) (>= 0) is largest.
+  template <int K, typename F, typename G>
+  PS_HD int sums_argmax(int n, F f, G g, int64_t *s) const {
+    sums<K>(n, f, s);
     int64_t best = -1;
     int at = 0;
     for (int j = 0; j < n; j++) {
-      const int64_t v = f(j);
+      const int64_t v = g(j);
       if (v > best) {
         best = v;
         at = j;
@@ -371,68 +402,6 @@ struct SerialLanes {
     for (int j = 0; j < n; j++) f(j);
   }
   PS_HD bool leader() const { return true; }
-  // cs[j], j <= n: the wrapping sum of a(i) over i < j.  a(j) is read
-  // before cs[j + 1] is written, so a may read it.
-  template <typename F>
-  PS_HD void prefix(int n, F a, int64_t *cs) const {
-    cs[0] = 0;
-    for (int j = 0; j < n; j++) {
-      const int64_t v = a(j);
-      cs[j + 1] = add(cs[j], v);
-    }
-  }
-  // The float32 sums, e from 0 up, of the pairs f(e, &c1, &c2), e < span.
-  template <typename F>
-  PS_HD void chain(int span, F f, float *p1, float *p2) const {
-    float a = 0.0f, b = 0.0f;
-    for (int e = 0; e < span; e++) {
-      float c1, c2;
-      f(e, &c1, &c2);
-      a = ps_add(a, c1);
-      b = ps_add(b, c2);
-    }
-    *p1 = a;
-    *p2 = b;
-  }
-  // The same sums in 8 lanes (span <= 32; band_kernels.py node_sum): lane
-  // i sums e = i, i + 8, ... below 8 floor(span / 8), the lanes are halved
-  // (i + 4, + 2, + 1), then the rest are added in order.
-  // The lanes rotate through a[0] (constant indices keep them in
-  // registers on the card): after 8 k elements lane i is back in a[i].
-  template <typename F>
-  PS_HD void lanes8(int span, F f, float *p1, float *p2) const {
-    float a[8] = {}, b[8] = {};
-    const int body = span & ~7;
-    for (int e = 0; e < body; e++) {
-      float c1, c2;
-      f(e, &c1, &c2);
-      const float na = ps_add(a[0], c1), nb = ps_add(b[0], c2);
-      for (int i = 0; i < 7; i++) {
-        a[i] = a[i + 1];
-        b[i] = b[i + 1];
-      }
-      a[7] = na;
-      b[7] = nb;
-    }
-    for (int i = 0; i < 4; i++) {
-      a[i] = ps_add(a[i], a[i + 4]);
-      b[i] = ps_add(b[i], b[i + 4]);
-    }
-    for (int i = 0; i < 2; i++) {
-      a[i] = ps_add(a[i], a[i + 2]);
-      b[i] = ps_add(b[i], b[i + 2]);
-    }
-    a[0] = ps_add(a[0], a[1]);
-    b[0] = ps_add(b[0], b[1]);
-    for (int e = body; e < span; e++) {
-      float c1, c2;
-      f(e, &c1, &c2);
-      a[0] = ps_add(a[0], c1);
-      b[0] = ps_add(b[0], c2);
-    }
-    *p1 = a[0];
-    *p2 = b[0];
-  }
 };
 
 // ---- the prologue of one row ----
@@ -444,7 +413,9 @@ struct SerialLanes {
 // it searches, [g2, sinp, dth, qcgf, trate] and [i, j, ok, k, ts, kk];
 // then the row's [cgf, skip_dist, dist0].  Strides: the pulse-search row
 // of group g at (g m + row) n; candidate c's row index at c m + row;
-// candidate field f of candidate c at (f C + c) m + row.
+// candidate field f of candidate c at (f C + c) m + row.  A lane group
+// past the call's last row runs that row again and writes nothing (live
+// false): its warp's reductions need every lane.
 struct Out {
   float *xs;
   uint8_t *lane_ok;
@@ -454,11 +425,13 @@ struct Out {
   float *rf;
   int64_t m, row;
   int C;
+  bool live;
 };
 
 PS_HD void put_cand(const Out &o, int c, float g2, float sinp, float dth,
                     float qcgf, float trate, int64_t i, int64_t j, bool ok,
                     int64_t k, int64_t ts) {
+  if (!o.live) return;
   const float f[5] = {g2, sinp, dth, qcgf, trate};
   const int64_t v[6] = {i, j, ok ? 1 : 0, k, ts, ok ? k : 0};
   for (int q = 0; q < 5; q++) o.cf[((int64_t)q * o.C + c) * o.m + o.row] = f[q];
@@ -479,31 +452,52 @@ PS_HD float dth_of(int64_t theta_q, int64_t qth) {
 // One row, through the lane policy L.  X, R, QM: the row's n gathered
 // coefficients, reference coefficients (zeros on keyframes) and QM
 // values; q0, b15: its quantizer and beta-1.5 flag; rt0 / rt1: the theta
-// / noref square-root table entries of n.
+// / noref square-root table entries of n.  Its integer sums are three
+// fused reductions (inter; keyframe two): the squares of both vectors and
+// the reference's nonzero lanes; the gains' energies, the correlation and
+// the reference's largest lane; the reflected reference's energy and
+// projection.
 template <typename Lanes>
 PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
                         const int32_t *X, const int32_t *R,
                         const int32_t *QM, int64_t q0, bool b15, int64_t rt0,
                         int64_t rt1, const Out &o) {
   // vector_log_mag: the shifts that bring each vector to 16 bits.
-  const int64_t xs_tot = L.sum(n, [&](int j) {
-    const int64_t t = (int64_t)X[j] >> 8;
-    return mul(t, t);
-  });
-  const int64_t rs_tot = L.sum(n, [&](int j) {
-    const int64_t t = (int64_t)R[j] >> 8;
-    return mul(t, t);
-  });
-  const bool any_r = L.any(n, [&](int j) { return R[j] != 0; });
-  const int64_t xshift = imax(0, 9 + floordiv(ilog(n + xs_tot), 2) - 15);
-  const int64_t rshift = imax(0, 9 + floordiv(ilog(n + rs_tot), 2) - 14);
+  int64_t t1[3];
+  L.template sums<3>(n, [&](int j, int64_t *v) {
+    const int64_t tx = (int64_t)X[j] >> 8, tr = (int64_t)R[j] >> 8;
+    v[0] = mul(tx, tx);
+    v[1] = mul(tr, tr);
+    v[2] = R[j] != 0 ? 1 : 0;
+  }, t1);
+  const bool any_r = t1[2] != 0;
+  const int64_t xshift = imax(0, 9 + floordiv(ilog(n + t1[0]), 2) - 15);
+  const int64_t rshift = imax(0, 9 + floordiv(ilog(n + t1[1]), 2) - 14);
   auto x16 = [&](int j) {
     return vshr_round(mul(X[j], QM[j]), 11 + xshift);
   };
   auto r16 = [&](int j) {
     return vshr_round(mul(R[j], QM[j]), 11 + rshift);
   };
-  const int64_t accx = L.sum(n, [&](int j) { return mul(x16(j), x16(j)); });
+  int64_t t2[3] = {0, 0, 0};
+  int mpos = 0;
+  if (keyframe) {
+    L.template sums<1>(n, [&](int j, int64_t *v) {
+      const int64_t a = x16(j);
+      v[0] = mul(a, a);
+    }, t2);
+  } else {
+    mpos = L.template sums_argmax<3>(n, [&](int j, int64_t *v) {
+      const int64_t a = x16(j), b = r16(j);
+      v[0] = mul(a, a);
+      v[1] = mul(b, b);
+      v[2] = mul(a, b);
+    }, [&](int j) {
+      const int64_t b = r16(j);
+      return b < 0 ? -b : b;
+    }, t2);
+  }
+  const int64_t accx = t2[0];
   int64_t cg, g;
   compute_gain(accx, q0, b15, xshift, &cg, &g);
   const float cgf = (float)cg;
@@ -518,10 +512,7 @@ PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
   if (keyframe) {
     skip_dist = dist0;
   } else {
-    const int64_t accr =
-        L.sum(n, [&](int j) { return mul(r16(j), r16(j)); });
-    const int64_t corr_i =
-        L.sum(n, [&](int j) { return mul(x16(j), r16(j)); });
+    const int64_t accr = t2[1], corr_i = t2[2];
     int64_t cgr, gr;
     compute_gain(accr, q0, b15, rshift, &cgr, &gr);
     icgr = shr_round(cgr, CGAIN_SHIFT);
@@ -547,17 +538,17 @@ PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
     theta_on = any_r && corr > 0.0f;
     // The Householder reflection of r16, its largest lane moved by the
     // reference gain, applied to x16; then lane mpos deleted.
-    const int mpos = L.argmax(n, [&](int j) {
-      const int64_t b = r16(j);
-      return b < 0 ? -b : b;
-    });
     const int64_t rm = r16(mpos);
     const int64_t bump = shr_round_v(mul(gr, rm > 0 ? 1 : -1), rshift);
     const int64_t rm_refl = wrap16(rm + bump);
     auto rr = [&](int j) { return j == mpos ? rm_refl : r16(j); };
-    const int64_t l2r = L.sum(n, [&](int j) { return mul(rr(j), rr(j)); });
-    const int64_t proj =
-        L.sum(n, [&](int j) { return mul(rr(j), x16(j)); });
+    int64_t t3[2];
+    L.template sums<2>(n, [&](int j, int64_t *v) {
+      const int64_t b = rr(j);
+      v[0] = mul(b, b);
+      v[1] = mul(b, x16(j));
+    }, t3);
+    const int64_t l2r = t3[0], proj = t3[1];
     const int64_t l2r_shift = (ilog(l2r) - 1) - 14;
     const int64_t rcp = od_rcp(wrap16(vshr_round(l2r, l2r_shift)));
     const int64_t proj_shift = (ilog(proj < 0 ? -proj : proj) - 1) - 14;
@@ -574,13 +565,14 @@ PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
     };
     // The theta candidates' row: the reflected lanes with lane mpos
     // deleted, over n - 1 lanes.
-    L.each(n, [&](int j) {
-      const int src = j + (j >= mpos ? 1 : 0);
-      const int64_t at = o.row * n + j;
-      o.xs[at] = j < n - 1 ? (float)xr_full(src < n - 1 ? src : n - 1)
-                           : 0.0f;
-      o.lane_ok[at] = j < n - 1;
-    });
+    if (o.live)
+      L.each(n, [&](int j) {
+        const int src = j + (j >= mpos ? 1 : 0);
+        const int64_t at = o.row * n + j;
+        o.xs[at] = j < n - 1 ? (float)xr_full(src < n - 1 ? src : n - 1)
+                             : 0.0f;
+        o.lane_ok[at] = j < n - 1;
+      });
     theta_q = floor_i(ps_fma32(acos_xla(corr), theta_c(), 0.5f));
     gain_bound = (cg - gain_offset) >> CGAIN_SHIFT;
     i_base = imax(gain_bound - 1, 1);
@@ -589,11 +581,12 @@ PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
     dist_gate = ps_add(dist0, lam);
   }
   // The noref candidates' row: x16 over every lane.
-  L.each(n, [&](int j) {
-    const int64_t at = ((int64_t)(G - 1) * o.m + o.row) * n + j;
-    o.xs[at] = (float)x16(j);
-    o.lane_ok[at] = 1;
-  });
+  if (o.live)
+    L.each(n, [&](int j) {
+      const int64_t at = ((int64_t)(G - 1) * o.m + o.row) * n + j;
+      o.xs[at] = (float)x16(j);
+      o.lane_ok[at] = 1;
+    });
   // Theta candidate c: gain gi = c / 4 of 3, theta tj = c % 4 of 4.
   auto theta_cand = [&](int c) {
     const int64_t i3 = wrap32(i_base + (c >> 2));
@@ -645,10 +638,11 @@ PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
       noref_cand(c);
     else
       theta_cand(c);
-    o.src[(int64_t)c * o.m + o.row] =
-        (int32_t)((nr ? (int64_t)(G - 1) * o.m : 0) + o.row);
+    if (o.live)
+      o.src[(int64_t)c * o.m + o.row] =
+          (int32_t)((nr ? (int64_t)(G - 1) * o.m : 0) + o.row);
   });
-  if (L.leader()) {
+  if (L.leader() && o.live) {
     o.rf[o.row] = cgf;
     o.rf[o.m + o.row] = skip_dist;
     o.rf[2 * o.m + o.row] = dist0;
@@ -657,114 +651,146 @@ PS_HD void prologue_row(const Lanes &L, int n, bool keyframe, float lam,
 
 // ---- the epilogue ----
 
-// A node of the split tree, as band_kernels.py node_table packs it.
+// A node of a split tree that spans more than one lane (the others never
+// code), as band_kernels.py node_table packs it into 4 int32: w0 = e |
+// base << 8 | size << 16 | psize << 24 and w1 = pbase | szctx7 << 8, with
+// e its place among all the tree's nodes in preorder (the order of XLA's
+// sums), base and size its span, pbase and psize its parent's (psize 0 at
+// the root), szctx7 seven times its size context; k1off the offset of its
+// k1 CDF row, tot1 the flat index of that row's total.
 struct Node {
-  int32_t base, size, parent, k1off, szctx7, tot1;
+  int32_t w0, w1, k1off, tot1;
 };
 
-// The two costs of node v (c1: a k = 1 leaf's, c2: a split's; at most one
-// is not zero) from the prefix sums cs of the row's pulse magnitudes and
-// the k1 and split CDF tables (the k1 table's last index last1; the split
-// table w2 wide, rows2 rows).  The node codes when it holds pulses, spans
-// more than one lane, and none of its ancestors ends coding: holds no
-// pulse, or one in at most 16 lanes.
-PS_HD void node_cost(const Node *nodes, int v, const int64_t *cs,
-                     const int32_t *k1, int64_t last1, const int32_t *sp,
-                     int w2, int rows2, float *c1, float *c2) {
-  const float c = log2e();
-  const Node nd = nodes[v];
-  const int64_t kn = cs[nd.base + nd.size] - cs[nd.base];
-  *c1 = 0.0f;
-  *c2 = 0.0f;
-  if (kn <= 0 || nd.size <= 1) return;
+// One coding node of a candidate, in the epilogue's list: key = e | k1 <<
+// 8 | shift << 9; a, b: its CDF row's total and its symbol's range, then
+// (term_cost) a: its cost.
+struct Term {
+  int32_t key;
+  float a, b;
+};
+PS_HD int term_e(const Term &t) { return t.key & 0xFF; }
+PS_HD bool term_k1(const Term &t) { return (t.key >> 8) & 1; }
+
+// Whether node nd codes, from the prefix sums cs of the candidate's pulse
+// magnitudes and ws of the magnitudes times their lane, and then its
+// term: the node codes when it holds pulses and none of its
+// ancestors ends coding (holds no pulse, or one in at most 16 lanes).  A
+// k = 1 leaf (one pulse in at most 16 lanes) codes its pulse's position
+// (the node's weighted sum less its base, as the plain version takes it)
+// from its k1 CDF row (the k1 table's last index last1); a split codes its
+// right half's count, its top bits from a split CDF row (the split table
+// w2 wide, rows2 rows), the `shift` rest raw.
+PS_HD bool node_term(const Node &nd, const int64_t *cs,
+                     const int64_t *ws, const int32_t *k1, int64_t last1,
+                     const int32_t *sp, int w2, int rows2, Term *t) {
+  const int e = nd.w0 & 0xFF, base = (nd.w0 >> 8) & 0xFF;
+  const int size = (nd.w0 >> 16) & 0xFF, psize = (nd.w0 >> 24) & 0xFF;
+  const int64_t kn = cs[base + size] - cs[base];
+  if (kn <= 0) return false;
   // Going up the tree, spans and pulse counts only grow: an ancestor holds
   // pulses, and can hold just one only when this node does, and then the
   // parent is the nearest that can span at most 16 lanes.
-  if (kn == 1 && nd.parent >= 0) {
-    const Node p = nodes[nd.parent];
-    if (p.size <= 16 && cs[p.base + p.size] - cs[p.base] == 1) return;
+  if (kn == 1 && psize != 0 && psize <= 16) {
+    const int pbase = nd.w1 & 0xFF;
+    if (cs[pbase + psize] - cs[pbase] == 1) return false;
   }
-  const bool is_k1 = kn == 1 && nd.size <= 16;
-  // A k = 1 leaf codes its pulse's position from its k1 CDF row; a split
-  // codes its right half's count (its top bits) from a split CDF row, and
-  // the rest raw.  Both cost log2(total) - log2(the symbol's range).
-  int64_t shift = 0, sym;
+  const bool is_k1 = kn == 1 && size <= 16;
+  int64_t shift = 0, sym, last;
   const int32_t *cdf;
-  int64_t last;
   float tot;
   if (is_k1) {
-    // The position of its one pulse: the lanes q >= 1 before which the
-    // node holds no pulse.
-    sym = 0;
-    for (int q = 1; q < 16; q++)
-      sym += q < nd.size && cs[nd.base + q] == cs[nd.base] ? 1 : 0;
+    sym = imin(imax(add(ws[base + size], -ws[base]) - base, 0), size - 1);
     tot = (float)k1[nd.tot1];
     cdf = k1 + nd.k1off;
     last = last1 - nd.k1off;
   } else {
-    const int64_t count_right =
-        cs[nd.base + nd.size] - cs[nd.base + (nd.size >> 1)];
+    const int64_t count_right = cs[base + size] - cs[base + (size >> 1)];
     shift = imax(ilog(kn) - 3, 0);
     sym = count_right >> shift;
     const int64_t t_red = kn >> shift;
-    const int64_t fctx = imin(imax(nd.szctx7 + t_red - 1, 0), rows2 - 1);
+    const int64_t fctx =
+        imin(imax((nd.w1 >> 8) + t_red - 1, 0), rows2 - 1);
     cdf = sp + fctx * w2;
     last = w2 - 1;
     tot = (float)cdf[imin(t_red, last)];
   }
   const float hi = (float)cdf[imin(sym, last)];
   const float lo = sym > 0 ? (float)cdf[imin(imax(sym - 1, 0), last)] : 0.0f;
-  const float pr = sub(hi, lo);
-  const float lt = log(tot < 1.0f ? 1.0f : tot);
-  const float lp = log(pr < 1.0f ? 1.0f : pr);
-  if (is_k1)
-    *c1 = ps_fma32(-lp, c, ps_mul(lt, c));
-  else
-    *c2 = ps_add(ps_fma32(lt, c, -ps_mul(lp, c)), (float)shift);
+  t->key = e | (is_k1 ? 1 << 8 : 0) | (int)(shift << 9);
+  t->a = tot;
+  t->b = sub(hi, lo);
+  return true;
 }
 
-// The codeword rate of one row of pulses y (n lanes, the first n_tree
-// coded) over the NN nodes of its split tree (preorder), through the lane
-// policy L; y(j): the pulse at lane j (int64).  cs: scratch of n + 1
-// (y may read cs[j + 1]: it is read before it is written).
-template <typename Lanes, typename Y>
-PS_HD float codeword_rate(const Lanes &L, Y y, int n, int n_tree,
-                          const Node *nodes, int NN, const int32_t *k1,
-                          int64_t last1, const int32_t *sp, int w2,
-                          int rows2, int64_t *cs) {
-  L.prefix(n, [&](int j) -> int64_t {
-    const int64_t v = y(j);
-    return j < n_tree ? (v < 0 ? -v : v) : 0;
-  }, cs);
-  auto cost = [&](int v, float *c1, float *c2) {
-    node_cost(nodes, v, cs, k1, last1, sp, w2, rows2, c1, c2);
-  };
-  float sum1 = 0.0f, sum2 = 0.0f;
-  // XLA's node sums: one chain below 16 nodes, 8 lanes from 16 to 32, else
-  // chunks of 32 with pad // 2 zeros in front, then the chunks' sums in
-  // order.
-  if (NN >= 16 && NN <= 32) {
-    L.lanes8(NN, cost, &sum1, &sum2);
-    return ps_add(sum1, sum2);
-  }
+// The term's cost: log2(total) - log2(the symbol's range), XLA's forms
+// (a k = 1 leaf fma(-log p, c, log2 tot); a split fma(log tot, c, -log2 p)
+// plus its raw bits).
+PS_HD float term_cost(const Term &t) {
+  const float c = log2e();
+  const float lt = log(t.a < 1.0f ? 1.0f : t.a);
+  const float lp = log(t.b < 1.0f ? 1.0f : t.b);
+  if (term_k1(t)) return ps_fma32(-lp, c, ps_mul(lt, c));
+  return ps_add(ps_fma32(lt, c, -ps_mul(lp, c)), (float)(t.key >> 9 & 31));
+}
+
+// XLA's sums of a candidate's node costs (the k = 1 leaves' and the
+// splits', each its own sum, then added), over the costs of its coding
+// nodes t[b..e) in preorder; the other nodes cost +0, and adding +0 to a
+// sum that starts at +0 changes nothing, so they are skipped.  NN nodes:
+// below 16 one chain; from 16 to 32 8 lanes, lane i summing the nodes e <
+// body = 8 floor(NN / 8) with e % 8 == i (lanes8_part), halved (i + 4, +
+// 2, + 1), then the rest in order (lanes8_rest); above 32 chunks of 32 with
+// lead zeros in front (XLA's split of the padding), each a chain, then the
+// chunks' sums in order (rate_chunks, which also takes the one chain).
+PS_HD bool sums_in_lanes8(int NN) { return NN >= 16 && NN <= 32; }
+
+PS_HD float rate_chunks(const Term *t, int b, int e, int NN) {
   const int nc = NN <= 32 ? 1 : (NN + 31) / 32;
-  const int span = NN <= 32 ? NN : 32;
   const int lead = NN <= 32 ? 0 : (nc * 32 - NN) / 2;
-  for (int ch = 0; ch < nc; ch++) {
-    float p1, p2;
-    L.chain(span, [&](int e, float *c1, float *c2) {
-      const int v = ch * 32 + e - lead;
-      if (v >= 0 && v < NN) {
-        cost(v, c1, c2);
-      } else {
-        *c1 = 0.0f;
-        *c2 = 0.0f;
-      }
-    }, &p1, &p2);
-    sum1 = ps_add(sum1, p1);
-    sum2 = ps_add(sum2, p2);
+  float s1 = 0.0f, s2 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+  int ch = 0;
+  for (int q = b; q < e; q++) {
+    const int c = (term_e(t[q]) + lead) >> 5;
+    if (c != ch) {
+      s1 = ps_add(s1, p1);
+      s2 = ps_add(s2, p2);
+      p1 = p2 = 0.0f;
+      ch = c;
+    }
+    if (term_k1(t[q]))
+      p1 = ps_add(p1, t[q].a);
+    else
+      p2 = ps_add(p2, t[q].a);
   }
-  return ps_add(sum1, sum2);
+  return ps_add(ps_add(s1, p1), ps_add(s2, p2));
+}
+
+PS_HD void lanes8_part(const Term *t, int b, int e, int body, int i,
+                       float *p1, float *p2) {
+  float a1 = 0.0f, a2 = 0.0f;
+  for (int q = b; q < e; q++) {
+    const int v = term_e(t[q]);
+    if (v >= body || (v & 7) != i) continue;
+    if (term_k1(t[q]))
+      a1 = ps_add(a1, t[q].a);
+    else
+      a2 = ps_add(a2, t[q].a);
+  }
+  *p1 = a1;
+  *p2 = a2;
+}
+
+PS_HD float lanes8_rest(const Term *t, int b, int e, int body, float a1,
+                        float a2) {
+  for (int q = b; q < e; q++) {
+    if (term_e(t[q]) < body) continue;
+    if (term_k1(t[q]))
+      a1 = ps_add(a1, t[q].a);
+    else
+      a2 = ps_add(a2, t[q].a);
+  }
+  return ps_add(a1, a2);
 }
 
 // The fast rate model of one row (band_kernels.py _fast_rate).
@@ -777,8 +803,7 @@ PS_HD float fast_rate(Y y, int n, int n_eff, int32_t k) {
     float acc = 0.0f;
     const int j0 = chunked ? 32 * ch : 0, j1 = chunked ? 32 * ch + 32 : n;
     for (int j = j0; j < j1; j++) {
-      const int64_t v = j < n ? y(j) : 0;
-      const float ya = (float)(v < 0 ? -v : v);
+      const float ya = (float)(j < n ? abs32(y(j)) : 0);
       acc = ps_add(acc, j < n && j < n_eff ? ps_mul((float)j, ya) : 0.0f);
     }
     total = chunked ? ps_add(total, acc) : acc;
@@ -797,49 +822,10 @@ PS_HD float fast_rate(Y y, int n, int n_eff, int32_t k) {
   return k == 0 ? 0.0f : rate;
 }
 
-// A candidate's distortion for the cost, and the one XLA keeps as the best
-// (the keyframe fusion that keeps it contracts the other product).
-PS_HD void cand_dist(bool isnr, bool keyframe, float cos_dist, float sinp,
-                     float dth, float qcgf, float cgf, float *dist,
-                     float *kept) {
-  float t = sub(2.0f, ps_mul(2.0f, cos_dist));
-  if (!isnr) t = ps_fma32(sinp, t, dth);
-  const float dq = sub(qcgf, cgf);
-  const float sq = ps_mul(dq, dq), qc = ps_mul(qcgf, cgf);
-  *dist = ps_mul(ps_fma32(sq, gw(), ps_mul(qc, t)), INV_CS2);
-  *kept = keyframe ? ps_mul(ps_fma32(t, qc, ps_mul(gw(), sq)), INV_CS2)
-                   : *dist;
-}
-
-// JAX's scan over a row's C candidates (band_kernels.py _select): the best
-// cost starts at best_cost (the initial candidate, -1), and candidate c in
-// order replaces it when ok(c) and cost(c) is below it (theta) or not above
-// it (noref, the last two); a NaN compares false.  *win: the last to
-// replace it.  *win_y: the last c whose cost_y(c) passes the same test
-// against the best cost before c: the fusion that carries JAX's pulses
-// computes the cost its own way (see epilogue_cand).
-template <typename Cost, typename CostY, typename Ok>
-PS_HD void select(float best_cost, int C, Cost cost, CostY cost_y, Ok ok,
-                  int *win, int *win_y) {
-  float b = best_cost;
-  *win = -1;
-  *win_y = -1;
-  for (int c = 0; c < C; c++) {
-    if (!ok(c)) continue;
-    const bool nr = c >= C - 2;
-    const float v = cost(c), vy = cost_y(c);
-    if (nr ? vy <= b : vy < b) *win_y = c;
-    if (nr ? v <= b : v < b) {
-      b = v;
-      *win = c;
-    }
-  }
-}
-
 // What the epilogue reads: the pulse search's result on the prologue's
 // rows (y_c (C m, n), cos_dist and ok_p (C m)), the prologue's cf, ci and
-// rf, the split trees of n - 1 (theta) and n (noref) lanes, the CDF tables
-// (use_cdf false: the fast rate model), and the call's constants.
+// rf, the CDF tables (use_cdf false: the fast rate model), and the call's
+// constants.
 struct EpiIn {
   const int32_t *y_c;
   const float *cos_dist;
@@ -847,8 +833,6 @@ struct EpiIn {
   const float *cf;
   const int32_t *ci;
   const float *rf;
-  const Node *nodes_th, *nodes_nr;
-  int nn_th, nn_nr;
   const int32_t *k1, *sp;
   int64_t last1;
   int w2, rows2;
@@ -858,69 +842,118 @@ struct EpiIn {
   float lam;
 };
 
-PS_HD float epi_f(const EpiIn &a, int f, int c, int64_t row) {
-  return a.cf[((int64_t)f * a.C + c) * a.m + row];
-}
-PS_HD int32_t epi_i(const EpiIn &a, int f, int c, int64_t row) {
-  return a.ci[((int64_t)f * a.C + c) * a.m + row];
+// The nodes of candidate c's split tree (n - 1 lanes for a theta
+// candidate, n for a noref one, the last two).
+PS_HD int cand_nn(const EpiIn &a, int c) {
+  return 2 * (c >= a.C - 2 ? a.n : a.n - 1) - 1;
 }
 
-// Candidate c of a row, through the lane policy L: its cost, the cost by
-// which JAX's pulses are selected, the distortion XLA keeps, and whether it
-// is ok.  XLA:CPU contracts dist + lam rate into fma(lam, rate, dist)
-// everywhere but in the inter fusion that carries the pulses, which rounds
-// lam rate first.  y: its n pulses (row c m + row of y_c, or a copy), as
-// y(j) (int64); cs: scratch of n + 1 (y may read cs[j + 1]: codeword_rate
-// reads it before it writes it).
-template <typename Lanes, typename Y>
-PS_HD void epilogue_cand(const Lanes &L, const EpiIn &a, int64_t row, int c,
-                         Y y, int64_t *cs, float *cost, float *cost_y,
-                         float *kept, bool *ok) {
-  const bool isnr = c >= a.C - 2;
+// A candidate's fields, read ahead of its rate, and what the row's
+// decision takes of it.
+struct CandIn {
+  float cos_dist, sinp, dth, qcgf, trate, cgf;
+  int32_t i, j, ok, k, ts;
+  uint8_t ok_p;
+};
+struct Cand {
+  float cost, cost_y, kept;
+  int32_t i, j, ts, k;
+  uint8_t ok, ok_p;
+};
+
+PS_HD CandIn load_cand(const EpiIn &a, int64_t row, int c) {
   const int64_t rc = (int64_t)c * a.m + row;
-  float rate;
-  if (a.use_cdf)
-    rate = codeword_rate(L, y, a.n, isnr ? a.n : a.n - 1,
-                         isnr ? a.nodes_nr : a.nodes_th,
-                         isnr ? a.nn_nr : a.nn_th, a.k1, a.last1, a.sp,
-                         a.w2, a.rows2, cs);
-  else
-    rate = fast_rate(y, a.n, isnr ? a.n : a.n - 1, epi_i(a, 3, c, row));
-  rate = ps_add(rate, isnr ? 0.0f : epi_f(a, 4, c, row));
-  float dist;
-  cand_dist(isnr, a.keyframe, a.cos_dist[rc], epi_f(a, 1, c, row),
-            epi_f(a, 2, c, row), epi_f(a, 3, c, row), a.rf[row], &dist, kept);
-  *cost = ps_fma32(rate, a.lam, dist);
-  *cost_y = a.keyframe ? *cost : ps_add(dist, ps_mul(rate, a.lam));
-  *ok = epi_i(a, 2, c, row) != 0;
+  auto f = [&](int q) { return a.cf[((int64_t)q * a.C + c) * a.m + row]; };
+  auto i = [&](int q) { return a.ci[((int64_t)q * a.C + c) * a.m + row]; };
+  return CandIn{a.cos_dist[rc], f(1), f(2), f(3), f(4), a.rf[row],
+                i(0), i(1), i(2), i(3), i(4), a.ok_p[rc]};
 }
 
-// The row's decision from its candidates' cost(c), cost_y(c), kept(c),
-// ok(c) and the pulse search's ok_p: writes ints (6 int32) and skip_diff;
-// returns the candidate whose pulses are the row's (-1: the initial
+// Candidate c's distortion, cost and the cost by which JAX's pulses are
+// selected, from its rate: XLA:CPU contracts dist + lam rate into fma(lam,
+// rate, dist) everywhere but in the inter fusion that carries the pulses,
+// which rounds lam rate first; the keyframe fusion that keeps the best
+// distortion contracts the other product.
+PS_HD Cand finish_cand(const EpiIn &a, int c, const CandIn &in, float rate) {
+  const bool isnr = c >= a.C - 2;
+  rate = ps_add(rate, isnr ? 0.0f : in.trate);
+  float t = sub(2.0f, ps_mul(2.0f, in.cos_dist));
+  if (!isnr) t = ps_fma32(in.sinp, t, in.dth);
+  const float dq = sub(in.qcgf, in.cgf);
+  const float sq = ps_mul(dq, dq), qc = ps_mul(in.qcgf, in.cgf);
+  const float dist = ps_mul(ps_fma32(sq, gw(), ps_mul(qc, t)), INV_CS2);
+  Cand o;
+  o.kept = a.keyframe ? ps_mul(ps_fma32(t, qc, ps_mul(gw(), sq)), INV_CS2)
+                      : dist;
+  o.cost = ps_fma32(rate, a.lam, dist);
+  o.cost_y = a.keyframe ? o.cost : ps_add(dist, ps_mul(rate, a.lam));
+  o.i = in.i;
+  o.j = in.j;
+  o.ts = in.ts;
+  o.k = in.k;
+  o.ok = in.ok != 0;
+  o.ok_p = in.ok_p;
+  return o;
+}
+
+// JAX's scan over a row's C candidates cd (band_kernels.py _select): the
+// best cost starts at the initial candidate's (-1), dist0, and candidate c
+// in order replaces it when ok and its cost is below it (theta) or not
+// above it (noref, the last two); a NaN compares false.  The winner is the
+// last to replace it; the candidate whose pulses are the row's is the last
+// whose cost_y passes the same test against the best cost before it.
+// skip_dist, dist0: the row's rf[1], rf[2].  Writes ints (6 int32) and
+// skip_diff of the row; returns that candidate (-1: the initial
 // candidate's zeros).
-template <typename Cost, typename CostY, typename Kept, typename Ok>
-PS_HD int epilogue_row(const EpiIn &a, int64_t row, Cost cost, CostY cost_y,
-                       Kept kept, Ok ok, int32_t *ints, float *skip_diff) {
-  const float dist0 = a.rf[2 * a.m + row];
-  int win, win_y;
-  select(dist0, a.C, cost, cost_y, ok, &win, &win_y);
+PS_HD int decide_row(const EpiIn &a, int64_t row, const Cand *cd,
+                     float skip_dist, float dist0, int32_t *ints,
+                     float *skip_diff) {
+  float b = dist0;
+  int win = -1, win_y = -1;
   bool valid = true;
-  for (int c = 0; c < a.C; c++)
-    if (ok(c) && !a.ok_p[(int64_t)c * a.m + row]) valid = false;
+  for (int c = 0; c < a.C; c++) {
+    if (!cd[c].ok) continue;
+    if (!cd[c].ok_p) valid = false;
+    const bool nr = c >= a.C - 2;
+    const float v = cd[c].cost, vy = cd[c].cost_y;
+    if (nr ? vy <= b : vy < b) win_y = c;
+    if (nr ? v <= b : v < b) {
+      b = v;
+      win = c;
+    }
+  }
   const bool sel = win >= 0;
-  const int64_t best_k = sel ? epi_i(a, 3, win, row) : 0;
+  const int64_t best_k = sel ? cd[win].k : 0;
   valid = valid && best_k <= 32767;
   int32_t *o = ints + row * 6;
   o[0] = sel ? (win >= a.C - 2 ? 1 : 0) : (a.keyframe ? 1 : 0);
-  o[1] = sel ? epi_i(a, 0, win, row) : 0;
-  o[2] = sel ? epi_i(a, 1, win, row) : (a.keyframe ? -1 : 0);
-  o[3] = sel ? epi_i(a, 4, win, row) : 0;
+  o[1] = sel ? cd[win].i : 0;
+  o[2] = sel ? cd[win].j : (a.keyframe ? -1 : 0);
+  o[3] = sel ? cd[win].ts : 0;
   o[4] = (int32_t)best_k;
   o[5] = valid ? 1 : 0;
-  skip_diff[row] = sub(a.rf[a.m + row], sel ? kept(win) : dist0);
+  skip_diff[row] = sub(skip_dist, sel ? cd[win].kept : dist0);
   return win_y;
 }
+
+// ---- the epilogue's plan (csrc/band_search.cu) ----
+
+// A warp takes a task of rpw rows (inter 1, keyframe 1 to 7), CW = rpw C
+// <= 14 candidates.  Only the ok ones can win, so only their rates are
+// computed: they take the task's slots in order, in passes of CPP: a pass
+// reads a candidate's pulses over LPC lanes, VPL a lane, into prefix sums,
+// then lists the coding nodes of its tree.  The list holds LCAP terms;
+// before a pass that could overflow it, and after the last, the warp
+// computes the listed terms' costs and the rates of the candidates listed
+// (a flush).  NMAX: the instantiation's widest band.
+constexpr int EPI_CW = 14;
+constexpr int EPI_LCAP = 256;
+PS_HD int epi_nmax(int n) {
+  return n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : 128;
+}
+PS_HD int epi_lpc(int nmax) { return nmax < 32 ? nmax : 32; }
+PS_HD int epi_cpp(int nmax) { return 32 / epi_lpc(nmax); }
+PS_HD int epi_pass_max(int nmax) { return epi_cpp(nmax) * (nmax - 1); }
 
 }  // namespace br
 
@@ -933,7 +966,8 @@ inline void br_prologue_host(int m, int n, bool keyframe, float lam,
                              const uint8_t *b15, int64_t rt0, int64_t rt1,
                              float *xs, uint8_t *lane_ok, int32_t *src,
                              float *cf, int32_t *ci, float *rf) {
-  const br::Out base{xs, lane_ok, src, cf, ci, rf, m, 0, keyframe ? 2 : 14};
+  const br::Out base{xs, lane_ok, src, cf, ci, rf, m, 0, keyframe ? 2 : 14,
+                     true};
   for (int r = 0; r < m; r++) {
     br::Out o = base;
     o.row = r;
@@ -943,25 +977,107 @@ inline void br_prologue_host(int m, int n, bool keyframe, float lam,
   }
 }
 
-inline void br_epilogue_host(const br::EpiIn &a, int32_t *ints,
-                             int16_t *y_out, float *skip_diff) {
-  int64_t cs[129];
-  float cost[14], cost_y[14], kept[14];
-  bool ok[14];
-  for (int64_t r = 0; r < a.m; r++) {
-    for (int c = 0; c < a.C; c++) {
-      const int32_t *y = a.y_c + ((int64_t)c * a.m + r) * a.n;
-      br::epilogue_cand(br::SerialLanes(), a, r, c,
-                        [&](int j) { return (int64_t)y[j]; }, cs, &cost[c],
-                        &cost_y[c], &kept[c], &ok[c]);
+// The epilogue of every row, task by task as the kernel's warp runs them
+// (rpw rows a task), in one thread: the ok candidates' slots, each pass's
+// prefix sums and terms into the list, a flush where the kernel flushes
+// (the terms' costs, then each listed candidate's sums, chain by chain),
+// then the candidates' costs, the rows' decisions and their pulses.
+// nodes_th / nodes_nr: the split trees' coding nodes (ni_th, ni_nr of
+// them).  flushes: counts the flushes before a task's end, which only a
+// list that could overflow makes.
+inline void br_epilogue_host(const br::EpiIn &a, const br::Node *nodes_th,
+                             int ni_th, const br::Node *nodes_nr, int ni_nr,
+                             int rpw, int32_t *ints, int16_t *y_out,
+                             float *skip_diff, int64_t *flushes) {
+  const int nmax = br::epi_nmax(a.n), cpp = br::epi_cpp(nmax);
+  const int CW = rpw * a.C;
+  br::Term list[br::EPI_LCAP];
+  int64_t cs[129], ws[129];
+  int seg[br::EPI_CW + 1], slot[br::EPI_CW];
+  float rate[br::EPI_CW];
+  br::CandIn in[br::EPI_CW];
+  br::Cand cd[br::EPI_CW];
+  for (int64_t r0 = 0; r0 < a.m; r0 += rpw) {
+    auto pulses = [&](int wc) {
+      return a.y_c + ((int64_t)(wc % a.C) * a.m + r0 + wc / a.C) * a.n;
+    };
+    int nok = 0;
+    for (int wc = 0; wc < CW; wc++) {
+      rate[wc] = 0.0f;
+      if (r0 + wc / a.C >= a.m) continue;
+      in[wc] = br::load_cand(a, r0 + wc / a.C, wc % a.C);
+      if (in[wc].ok) slot[nok++] = wc;
     }
-    const int win = br::epilogue_row(
-        a, r, [&](int c) { return cost[c]; }, [&](int c) { return cost_y[c]; },
-        [&](int c) { return kept[c]; }, [&](int c) { return ok[c]; }, ints,
-        skip_diff);
-    for (int j = 0; j < a.n; j++)
-      y_out[r * a.n + j] =
-          win >= 0 ? (int16_t)a.y_c[((int64_t)win * a.m + r) * a.n + j] : 0;
+    int count = 0, first = 0;
+    auto flush = [&](int last) {
+      for (int q = 0; q < count; q++) list[q].a = br::term_cost(list[q]);
+      for (int s = first; s < last; s++) {
+        const int b = seg[s], e = s + 1 < last ? seg[s + 1] : count;
+        const int NN = br::cand_nn(a, slot[s] % a.C);
+        if (br::sums_in_lanes8(NN)) {
+          float a1[8], a2[8];
+          for (int i = 0; i < 8; i++)
+            br::lanes8_part(list, b, e, NN & ~7, i, &a1[i], &a2[i]);
+          for (int h = 4; h > 0; h >>= 1)
+            for (int i = 0; i < h; i++) {
+              a1[i] = ps_add(a1[i], a1[i + h]);
+              a2[i] = ps_add(a2[i], a2[i + h]);
+            }
+          rate[slot[s]] = br::lanes8_rest(list, b, e, NN & ~7, a1[0], a2[0]);
+        } else {
+          rate[slot[s]] = br::rate_chunks(list, b, e, NN);
+        }
+      }
+      count = 0;
+      first = last;
+    };
+    if (a.use_cdf) {
+      for (int p0 = 0; p0 < nok; p0 += cpp) {
+        if (count + br::epi_pass_max(nmax) > br::EPI_LCAP) {
+          flush(p0);
+          ++*flushes;
+        }
+        for (int s = p0; s < p0 + cpp && s < nok; s++) {
+          seg[s] = count;
+          const int wc = slot[s];
+          const bool isnr = wc % a.C >= a.C - 2;
+          const int nt = isnr ? a.n : a.n - 1;
+          const int32_t *y = pulses(wc);
+          cs[0] = ws[0] = 0;
+          for (int j = 0; j < a.n; j++) {
+            const int64_t v = j < nt ? br::abs32(y[j]) : 0;
+            cs[j + 1] = br::add(cs[j], v);
+            ws[j + 1] = br::add(ws[j], br::mul(v, j));
+          }
+          if (cs[a.n] == 0) continue;  // no pulse: no node codes
+          const br::Node *nodes = isnr ? nodes_nr : nodes_th;
+          for (int q = 0; q < (isnr ? ni_nr : ni_th); q++)
+            if (br::node_term(nodes[q], cs, ws, a.k1, a.last1, a.sp, a.w2,
+                              a.rows2, &list[count]))
+              count++;
+        }
+      }
+      flush(nok);
+    } else {
+      for (int s = 0; s < nok; s++) {
+        const int wc = slot[s], c = wc % a.C;
+        const int32_t *y = pulses(wc);
+        rate[wc] = br::fast_rate([&](int j) { return (int64_t)y[j]; }, a.n,
+                                 c >= a.C - 2 ? a.n : a.n - 1, in[wc].k);
+      }
+    }
+    for (int wc = 0; wc < CW; wc++)
+      if (r0 + wc / a.C < a.m)
+        cd[wc] = br::finish_cand(a, wc % a.C, in[wc], rate[wc]);
+    for (int rl = 0; rl < rpw && r0 + rl < a.m; rl++) {
+      const int64_t row = r0 + rl;
+      const int win = br::decide_row(a, row, cd + rl * a.C, a.rf[a.m + row],
+                                     a.rf[2 * a.m + row], ints, skip_diff);
+      for (int j = 0; j < a.n; j++)
+        y_out[row * a.n + j] =
+            win >= 0 ? (int16_t)a.y_c[((int64_t)win * a.m + row) * a.n + j]
+                     : 0;
+    }
   }
 }
 #endif

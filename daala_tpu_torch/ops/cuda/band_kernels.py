@@ -66,8 +66,8 @@ from daala_tpu_torch.utils import devstats
 NAME = "band_search"  # the source, csrc/band_search.cu
 KERNEL_PRO = "band_prologue"  # the launch counts' names
 KERNEL_EPI = "band_epilogue"
-KERNELS = ("band_prologue_kernel", "band_epilogue_kernel",
-           "band_epilogue_rows_kernel")  # the codec's __global__ functions
+KERNELS = ("band_prologue_kernel",
+           "band_epilogue_kernel")  # the codec's __global__ functions
 CHECK_KERNELS = ("band_acos_probe_kernel",)  # launched by the checks only
 MAX_N = 128  # the widest band the kernels take: the codec's widest
 NCAND = 14  # 12 theta candidates (3 gains x 4 thetas), then 2 noref
@@ -625,14 +625,23 @@ def _tree_tensors(n_tree, w1, device):
 
 @functools.lru_cache(maxsize=None)
 def node_table(n_tree, w1, device="cpu"):
-    """The split tree of n_tree lanes as the kernels read it: an int32
-    (NN, 6) tensor on `device` of [base, size, parent, k1 row offset
-    (k1_id w1), 7 sz_ctx, the flat index of the k1 row's total] per node,
-    in preorder (csrc/band_row.cuh br::Node)."""
+    """The nodes of the split tree of n_tree lanes that span more than
+    one lane (the others never code), as the kernels read them: an int32
+    (n_tree - 1, 4) tensor on `device`, in preorder, of [e | base << 8 |
+    size << 16 | psize << 24, pbase | 7 sz_ctx << 8, the k1 CDF row's
+    offset (k1_id w1), the flat index of its total] per node
+    (csrc/band_row.cuh br::Node): e is the node's place among all 2 n_tree
+    - 1 nodes (the order of XLA's sums), pbase and psize its parent's span
+    (psize 0 at the root)."""
     tt = _tree_tables(n_tree)
-    tab = np.stack([tt["base"], tt["size"], tt["parent"], tt["k1_id"] * w1,
-                    7 * tt["sz_ctx"], _tot1(tt, w1)], 1).astype(np.int32)
-    return torch.from_numpy(tab).to(device)
+    inner = np.nonzero(tt["size"] > 1)[0]
+    par = tt["parent"][inner]
+    psize = np.where(par >= 0, tt["size"][np.maximum(par, 0)], 0)
+    pbase = np.where(par >= 0, tt["base"][np.maximum(par, 0)], 0)
+    tab = np.stack([inner | tt["base"][inner] << 8 | tt["size"][inner] << 16
+                    | psize << 24, pbase | 7 * tt["sz_ctx"][inner] << 8,
+                    (tt["k1_id"] * w1)[inner], _tot1(tt, w1)[inner]], 1)
+    return torch.from_numpy(tab.astype(np.int32).reshape(-1, 4)).to(device)
 
 
 def _codeword_rate(y, k, n_tree, n, k1_cdf, split_cdf):
@@ -1031,14 +1040,29 @@ _PRO_ARGTYPES = ([_P, _P, ctypes.c_longlong] + [_P] * 6 + [_I, _I, _I, _F]
 _EPI_ARGTYPES = ([_P] * 7 + [_I, _P, _I, _P, ctypes.c_longlong, _P]
                  + [_I] * 7 + [_F] + [_P] * 4)
 _PROBE_ARGTYPES = [_P, _P, ctypes.c_longlong, _P]
+ENTRIES = {"band_prologue": _PRO_ARGTYPES, "band_epilogue": _EPI_ARGTYPES,
+           "band_acos_probe": _PROBE_ARGTYPES, "band_occupancy": [_P]}
+# band_occupancy's ten counts: the prologue's kernel at 8, 16 and 32 lanes
+# a row, at n = 128 and at n = 8, then the epilogue's at n = 8, 15, 32, 128.
+OCCUPANCY = tuple("band_prologue_kernel<%d> n=%d" % (g, n) for n in (128, 8)
+                  for g in (8, 16, 32)) + tuple(
+    "band_epilogue_kernel n=%d" % n for n in (8, 15, 32, 128))
 
 
 def build():
     """Build (first use) and load csrc/band_search.cu; returns the
     library."""
-    return _build.load(NAME, {"band_prologue": _PRO_ARGTYPES,
-                              "band_epilogue": _EPI_ARGTYPES,
-                              "band_acos_probe": _PROBE_ARGTYPES})
+    return _build.load(NAME, ENTRIES)
+
+
+def occupancy():
+    """{kernel: blocks an SM} from the occupancy API at the block size and
+    shared memory each launches with (`OCCUPANCY` names them).  For the
+    chip checks; needs a card."""
+    out = (ctypes.c_int * len(OCCUPANCY))()
+    _build.check(build().band_occupancy(ctypes.addressof(out)),
+                 "band_occupancy")
+    return dict(zip(OCCUPANCY, out))
 
 
 def _need(name, t, dtype, shape, dev):

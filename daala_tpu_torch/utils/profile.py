@@ -274,17 +274,21 @@ def per_frame(frames, device, sweep, lean=False):
 def traced(frames, device, out_dir, sweep, lean=False):
     """torch.profiler traces of a fresh encoder's keyframe and first
     inter frame; returns their device summaries, with the device work of
-    each band_search and SAD-field call."""
+    each band_search and SAD-field call and the frame's devstats spans
+    (the front end's `analyze_*` summed as front_end_ms)."""
     from torch.profiler import ProfilerActivity, profile
+    from daala_tpu_torch.utils import devstats
     enc = _encoder(device, sweep, lean)
     res = {}
     for label, fr in (("keyframe", frames[0]), ("inter", frames[1])):
+        devstats.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             enc.encode_frame(fr)
             torch.cuda.synchronize(device)
             wall = time.perf_counter() - t0
+        spans = devstats.snapshot()["spans_s"]
         path = os.path.join(out_dir, "trace_%s%s.json"
                             % (label, "_lean" if lean else ""))
         prof.export_chrome_trace(path)
@@ -295,6 +299,12 @@ def traced(frames, device, out_dir, sweep, lean=False):
         res[label] = s = device_summary(events, wall)
         for name in ("band_search", "fullpel_sad_fields"):
             s[name] = span_device_work(events, name)
+        s["spans_ms"] = {k: 1e3 * v for k, v in spans.items()}
+        s["front_end_ms"] = sum(v for k, v in s["spans_ms"].items()
+                                if k.startswith("analyze_"))
+        print("trace %s: front end (analyze_*) %.3f ms of the wall; spans "
+              "ms %s" % (label, s["front_end_ms"],
+                         {k: round(v, 3) for k, v in s["spans_ms"].items()}))
         print("trace %s: wall %.4f s, device busy %.3f ms (%.3f%%); copies "
               "%.3f ms (%d), hand kernels %.3f ms (%d), other kernels "
               "%.3f ms (%d); %s"

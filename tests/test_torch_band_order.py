@@ -28,6 +28,10 @@ The candidates' costs themselves reach no output but through the
 choice, so ties are built: rows and rate multipliers at which two
 candidates' costs lie within an ulp (`test_cost_ties_equal_jax`), where
 XLA's two roundings of the cost and the order of its rate sums decide.
+
+XLA:CPU's jitted code flushes float32 subnormals to zero and the port
+does not; `test_lean_rows_have_no_subnormal_values` looks for them in
+every float32 value of the band search on a lean encode's rows.
 """
 
 import functools
@@ -40,9 +44,12 @@ import jax
 import jax.numpy as jnp
 
 from daala_tpu.models import pvqsearch as JPS
-from daala_tpu_torch.codec.encoder import OD_PVQ_LAMBDA
+from daala_tpu_torch import native
+from daala_tpu_torch.codec import headers
+from daala_tpu_torch.codec.encoder import OD_PVQ_LAMBDA, Encoder
 from daala_tpu_torch.models import pvqsearch as PS
 from daala_tpu_torch.ops.cuda import band_kernels as BK
+from daala_tpu_torch.ops.cuda import pulse_kernels as PK
 from test_torch_pvqsearch import _cdfs
 
 import torch_threads
@@ -185,3 +192,81 @@ def test_xla_log_equals_jax():
     np.testing.assert_array_equal(got, want)
     assert (torch.log(torch.from_numpy(xs)).numpy().view(np.int32)
             != want).any()
+
+
+@pytest.fixture(scope="module")
+def lean_calls():
+    """Every band_search call of the port's lean tier on the CPU (its
+    plain versions) encoding test_torch_pvqsearch's 96x64 clip, a
+    keyframe and an inter frame, at quant 8 and 40: (args, kwargs), the
+    tensors cloned as the call took them (the codec goes on updating
+    the arrays that a CPU upload shares)."""
+    if native.get_lib() is None:
+        pytest.skip("native engine unavailable")
+    import content
+    calls = []
+    real = PS.band_search
+    keep = lambda v: v.clone() if torch.is_tensor(v) else v
+
+    def capture(*args, **kw):
+        calls.append((tuple(map(keep, args)),
+                      {k: keep(v) for k, v in kw.items()}))
+        return real(*args, **kw)
+    w, h = 96, 64
+    frames = content.make_clip(w, h, 2, seed=5)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PS, "band_search", capture)
+        for q in (8, 40):
+            enc = Encoder(headers.Info(pic_width=w, pic_height=h), quant=q,
+                          complexity=7, device="cpu",
+                          use_device_analysis=False, use_device_pvq=True)
+            for fr in frames:
+                enc.encode_frame(fr)
+    return calls
+
+
+def _subnormal(t):
+    a = t.abs()
+    return (a > 0) & (a < 2.0 ** -126)
+
+
+def test_lean_rows_have_no_subnormal_values(lean_calls):
+    """No float32 value of the port's plain band search on a lean
+    encode's rows is subnormal: the prologue's xs, cf and rf, the pulse
+    search's cos_dist and the epilogue's skip_diff, at every band length
+    and frame type of the encode (16 calls, 1,452 rows).  Where one
+    were, XLA:CPU, which flushes subnormals to zero in jitted code, could
+    part from the port: a subnormal skip_diff must then equal JAX's
+    jitted band_search on the same call."""
+    lengths, rows = set(), 0
+    for args, kw in lean_calls:
+        (dflat, mdflat, base, tabsel, tab, qmtab, q0, beta15, lam, n,
+         iters) = args
+        kf = kw["is_keyframe"]
+        xs, lane_ok, src, cf, ci, rf = BK.band_prologue_plain(
+            dflat, mdflat, base, tabsel, tab, qmtab, q0, beta15, lam, n, kf)
+        y_c, cos_dist, ok_p = PK.pulse_search_plain(
+            xs, ci[5].reshape(-1), cf[0].reshape(-1), lam, lane_ok, iters,
+            src)
+        _, _, skip_diff = BK.band_epilogue_plain(
+            y_c, cos_dist, ok_p, cf, ci, rf, lam, n, kw["k1_cdf"],
+            kw["split_cdf"], kf)
+        for name, t in (("xs", xs), ("cf", cf), ("rf", rf),
+                        ("cos_dist", cos_dist)):
+            assert not bool(_subnormal(t).any()), (name, n, kf)
+        sub = _subnormal(skip_diff)
+        if bool(sub.any()):
+            jargs = [jnp.asarray(a.numpy()) if torch.is_tensor(a) else a
+                     for a in args[:8]]
+            with jax.enable_x64(True):
+                want = JPS.band_search(
+                    *jargs, jnp.float32(lam), n, iters,
+                    k1_cdf=jnp.asarray(kw["k1_cdf"].numpy()),
+                    split_cdf=jnp.asarray(kw["split_cdf"].numpy()),
+                    is_keyframe=kf)
+            np.testing.assert_array_equal(
+                skip_diff[sub].numpy().view(np.int32),
+                np.asarray(want[2])[sub.numpy()].view(np.int32))
+        lengths.add((n, kf))
+        rows += base.shape[0]
+    assert len(lengths) == 8 and rows > 1000, (lengths, rows)

@@ -485,16 +485,29 @@ def _search_rows(dev, n, m, is_keyframe, seed):
 
 
 @pytest.mark.parametrize("is_keyframe", [False, True])
-@pytest.mark.parametrize("n,m", [(8, 20000), (15, 30000), (32, 8000),
-                                 (128, 2000), (512, 300)])
-def test_band_search_on_card_matches_cpu(card, n, m, is_keyframe):
+@pytest.mark.parametrize("n,m,fast", [
+    pytest.param(8, 20000, False, id="8-20000"),
+    pytest.param(15, 30000, False, id="15-30000"),
+    pytest.param(32, 8000, False, id="32-8000"),
+    pytest.param(128, 2000, False, id="128-2000"),
+    pytest.param(512, 300, False, id="512-300"),
+    pytest.param(15, 30001, True, id="15-30001-fast"),
+    pytest.param(128, 9001, False, id="128-9001"),
+    pytest.param(32, 41, False, id="32-41")])
+def test_band_search_on_card_matches_cpu(card, n, m, fast, is_keyframe):
     """The same rows on the card and on the CPU: every output of every
     row equal, the integers, y and skip_diff's bits (NaN equal to NaN),
     and every output tensor on the card (both devices compute XLA:CPU's
-    float32 forms, glibc's atan2f included).  A band wider than the
+    float32 forms, glibc's atan2f included).  Every form of the rate
+    sums (n = 8, 15, 32, 128), the fast rate model (no CDF tables),
+    calls of more rows than the kernels' grids hold at once, keyframe
+    calls of several rows a warp with a ragged last task (30,001 and
+    9,001 rows) and a call smaller than one block.  A band wider than the
     codec's widest (128 lanes), which the band kernels do not take, is
     refused on the card and searched on the CPU."""
     args = _search_rows(card, n, m, is_keyframe, n + m)
+    if fast:
+        args["k1_cdf"] = args["split_cdf"] = None
     if n > 128:
         with pytest.raises(ValueError, match="bands of 2 to 128 lanes"):
             PS.band_search(**args)
@@ -641,11 +654,13 @@ def test_pulse_search_kernel_with_row_index(card, n):
 
 def _band_cases(card, is_keyframe):
     """_search_rows at a 1080p frame's row counts of every band length,
-    and at two small counts, whose calls take the epilogue's warp a
-    candidate where the large ones take a thread a candidate, with rows
-    whose gathers fall before and past the coefficient buffer."""
+    at two small counts (the prologue's 32 lanes a row, the epilogue's
+    one keyframe row a warp) and at 9,001 rows of 128 lanes (the
+    prologue's 16 lanes a row, several keyframe rows a warp, a ragged
+    last task), with rows whose gathers fall before and past the
+    coefficient buffer."""
     for n, m in [(8, 20000), (15, 30000), (32, 8000), (128, 2000), (8, 700),
-                 (15, 600)]:
+                 (15, 600), (128, 9001)]:
         args = _search_rows(card, n, m, is_keyframe, n + m)
         base = args["base"].clone()
         base[:3] = -2 * n
