@@ -1,0 +1,8 @@
+"""PVQ band search (models/pvqsearch.py): the search_frame span a frame,
+in ms."""
+
+from codecbench.metrics import span_ms_per_frame
+
+
+def read(run):
+    return span_ms_per_frame(run, "search_frame")
