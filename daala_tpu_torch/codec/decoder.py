@@ -43,6 +43,7 @@ from daala_tpu_torch.ops import pvq as P
 from daala_tpu_torch.ops.haar import haar_kernel
 from daala_tpu_torch.codec import mc as MC
 from daala_tpu_torch.device import resolve
+from daala_tpu_torch.utils import devstats
 
 OD_NBSIZES = 5
 OD_MAX_REORDER = 16
@@ -255,69 +256,73 @@ class Decoder:
         st = self.state
         info = self.info
         nplanes = info.nplanes
-        pvq_qm = np.zeros((4, 30), np.int32)
-        for pli in range(nplanes):
-            pvq_qm[pli, :] = st.pvq_qm_q4[pli]
-        nvdr = st.frame_height >> 6
-        nhdr = st.frame_width >> 6
-        lv = np.zeros(nvdr * nhdr, np.uint8)
-        cfg = np.zeros(64, np.int64)
-        cfg[0] = nplanes
-        cfg[1] = st.frame_width
-        cfg[2] = st.frame_height
-        cfg[3] = info.pic_width
-        cfg[4] = info.pic_height
-        cfg[5] = st.nhsb
-        cfg[6] = st.nvsb
-        cfg[7] = st.quantizer
-        cfg[8] = st.coded_quantizer
-        cfg[10] = 1 if is_keyframe else 0
-        cfg[11] = 1 if use_haar_wavelet else 0
-        cfg[13] = 1 if use_activity_masking else 0
-        cfg[18] = st.bsize.ctypes.data
-        cfg[19] = st.bsize.strides[0]
-        cfg[20] = st.qm.ctypes.data
-        cfg[21] = st.qm_inv.ctypes.data
-        cfg[22] = pvq_qm.ctypes.data
-        cfg[23] = lv.ctypes.data
-        keep = [pvq_qm, lv]
-        ctmp = []
-        for pli in range(nplanes):
-            xd, yd = info.plane_dec[pli]
-            out_c = np.zeros((st.frame_height >> yd,
-                              st.frame_width >> xd), np.int32)
-            ctmp.append(out_c)
-            if not is_keyframe:
-                mc = np.ascontiguousarray(self_img.plane_view(pli))
-                keep.append(mc)
-                cfg[25 + 6 * pli] = mc.ctypes.data
-            cfg[26 + 6 * pli] = out_c.ctypes.data
-            cfg[27 + 6 * pli] = st.bskip[pli].ctypes.data
-            cfg[29 + 6 * pli] = st.sb_dc_mem[pli].ctypes.data
-            cfg[48 + 2 * pli] = xd
-            cfg[49 + 2 * pli] = yd
-        if info.full_precision_references:
-            # 12-bit uint16 reference buffers (frame_dec.inc mc_fpr).
-            cfg[56] = info.bitdepth_mode
-        # Device synthesis back-end: native parse-only mode (emit_d)
-        # fills the d planes and dering levels; the device reconstructs
-        # (models/synthesis.py masked IDCT + postfilters, then
-        # models/restore.py dering) bit-exactly.
-        device_synth = (bool(getattr(self, "use_device_synthesis",
-                                     False))
-                        and not use_haar_wavelet)
-        dtmp = None
-        if device_synth:
-            cfg[57] = 1
-            dtmp = []
+        # The host span parse_buffers: the parse's output buffers, the
+        # prediction planes made contiguous, the pointer tables.
+        with devstats.host_span("parse_buffers"):
+            pvq_qm = np.zeros((4, 30), np.int32)
+            for pli in range(nplanes):
+                pvq_qm[pli, :] = st.pvq_qm_q4[pli]
+            nvdr = st.frame_height >> 6
+            nhdr = st.frame_width >> 6
+            lv = np.zeros(nvdr * nhdr, np.uint8)
+            cfg = np.zeros(64, np.int64)
+            cfg[0] = nplanes
+            cfg[1] = st.frame_width
+            cfg[2] = st.frame_height
+            cfg[3] = info.pic_width
+            cfg[4] = info.pic_height
+            cfg[5] = st.nhsb
+            cfg[6] = st.nvsb
+            cfg[7] = st.quantizer
+            cfg[8] = st.coded_quantizer
+            cfg[10] = 1 if is_keyframe else 0
+            cfg[11] = 1 if use_haar_wavelet else 0
+            cfg[13] = 1 if use_activity_masking else 0
+            cfg[18] = st.bsize.ctypes.data
+            cfg[19] = st.bsize.strides[0]
+            cfg[20] = st.qm.ctypes.data
+            cfg[21] = st.qm_inv.ctypes.data
+            cfg[22] = pvq_qm.ctypes.data
+            cfg[23] = lv.ctypes.data
+            keep = [pvq_qm, lv]
+            ctmp = []
             for pli in range(nplanes):
                 xd, yd = info.plane_dec[pli]
-                d_out = np.zeros((st.frame_height >> yd,
+                out_c = np.zeros((st.frame_height >> yd,
                                   st.frame_width >> xd), np.int32)
-                dtmp.append(d_out)
-                cfg[28 + 6 * pli] = d_out.ctypes.data
-        ap = native_ptr_table(st.adapt)
-        lib.fc_decode_frame(dec._h, ap.ctypes.data, cfg.ctypes.data)
+                ctmp.append(out_c)
+                if not is_keyframe:
+                    mc = np.ascontiguousarray(self_img.plane_view(pli))
+                    keep.append(mc)
+                    cfg[25 + 6 * pli] = mc.ctypes.data
+                cfg[26 + 6 * pli] = out_c.ctypes.data
+                cfg[27 + 6 * pli] = st.bskip[pli].ctypes.data
+                cfg[29 + 6 * pli] = st.sb_dc_mem[pli].ctypes.data
+                cfg[48 + 2 * pli] = xd
+                cfg[49 + 2 * pli] = yd
+            if info.full_precision_references:
+                # 12-bit uint16 reference buffers (frame_dec.inc mc_fpr).
+                cfg[56] = info.bitdepth_mode
+            # Device synthesis back-end: native parse-only mode (emit_d)
+            # fills the d planes and dering levels; the device reconstructs
+            # (models/synthesis.py masked IDCT + postfilters, then
+            # models/restore.py dering) bit-exactly.
+            device_synth = (bool(getattr(self, "use_device_synthesis",
+                                         False))
+                            and not use_haar_wavelet)
+            dtmp = None
+            if device_synth:
+                cfg[57] = 1
+                dtmp = []
+                for pli in range(nplanes):
+                    xd, yd = info.plane_dec[pli]
+                    d_out = np.zeros((st.frame_height >> yd,
+                                      st.frame_width >> xd), np.int32)
+                    dtmp.append(d_out)
+                    cfg[28 + 6 * pli] = d_out.ctypes.data
+            ap = native_ptr_table(st.adapt)
+        with devstats.host_span("parse_frame"):
+            lib.fc_decode_frame(dec._h, ap.ctypes.data, cfg.ctypes.data)
         if st.quantizer != 0:
             st.dering_level = lv.reshape(nvdr, nhdr).astype(np.int32)
         if device_synth:
@@ -344,24 +349,28 @@ class Decoder:
         nhdr = st.frame_width >> 6
         nvdr = st.frame_height >> 6
         base_threshold = float(st.quantizer) ** 0.84182
-        etmp = [c.astype(np.int16) for c in ctmp]
-        sbs = np.flatnonzero(levels)
-        if not len(sbs):
-            return
-        lv = levels.reshape(-1)
-        thresholds = [[int(dering_mod.OD_DERING_GAIN_TABLE[int(lv[i])]
-                           * base_threshold * (1 if pli == 0 else 0.6))
-                       for i in sbs] for pli in range(info.nplanes)]
-        xdecs = [info.plane_dec[pli][0] for pli in range(info.nplanes)]
+        # The host stretches on either side of the device's
+        # dering_frame are the host span dering_host.
+        with devstats.host_span("dering_host"):
+            etmp = [c.astype(np.int16) for c in ctmp]
+            sbs = np.flatnonzero(levels)
+            if not len(sbs):
+                return
+            lv = levels.reshape(-1)
+            thresholds = [[int(dering_mod.OD_DERING_GAIN_TABLE[int(lv[i])]
+                               * base_threshold * (1 if pli == 0 else 0.6))
+                           for i in sbs] for pli in range(info.nplanes)]
+            xdecs = [info.plane_dec[pli][0] for pli in range(info.nplanes)]
         outs = R.dering_frame_device(etmp, st.bskip, xdecs, nvdr, nhdr, sbs,
                                      thresholds, device=self.device)
-        for pli in range(info.nplanes):
-            ln = 6 - xdecs[pli]
-            n = 1 << ln
-            for k, i in enumerate(sbs):
-                sby, sbx = divmod(int(i), nhdr)
-                ctmp[pli][sby << ln:(sby << ln) + n,
-                          sbx << ln:(sbx << ln) + n] = outs[pli][k]
+        with devstats.host_span("dering_host"):
+            for pli in range(info.nplanes):
+                ln = 6 - xdecs[pli]
+                n = 1 << ln
+                for k, i in enumerate(sbs):
+                    sby, sbx = divmod(int(i), nhdr)
+                    ctmp[pli][sby << ln:(sby << ln) + n,
+                              sbx << ln:(sbx << ln) + n] = outs[pli][k]
 
     # -- keyframe DC (reference: src/decode.c:605-654) ----------------------
 
@@ -749,12 +758,14 @@ class Decoder:
         self_img = self.ref_imgs[refi]
         use_native = self._use_native_frame(dec)
         if not is_keyframe:
-            if use_native:
-                self._dec_mv_unpack_native(dec, num_refs)
-            else:
-                self._dec_mv_unpack(dec, num_refs)
-            MC.mc_predict_frame(self.mv_grid, self.ref_imgs, self.ref_imgi,
-                                info, self_img)
+            with devstats.host_span("decode_mvs"):
+                if use_native:
+                    self._dec_mv_unpack_native(dec, num_refs)
+                else:
+                    self._dec_mv_unpack(dec, num_refs)
+            with devstats.host_span("mc_predict"):
+                MC.mc_predict_frame(self.mv_grid, self.ref_imgs,
+                                    self.ref_imgi, info, self_img)
         # -- od_decode_coefficients ----------------------------------------
         st.coded_quantizer = dec.decode_uint(quantizer.N_CODED_QUANTIZERS)
         st.quantizer = quantizer.codedquantizer_to_quantizer(
@@ -771,40 +782,42 @@ class Decoder:
             ctmp = self._decode_coefficients(dec, is_keyframe,
                                              use_activity_masking,
                                              use_haar_wavelet, self_img)
-        # Store reconstruction into the SELF reference image.
-        for pli in range(nplanes):
-            self_img.plane_view(pli)[:, :] = coeff_to_ref_plane(
-                ctmp[pli], lossless, fpr=fpr,
-                bitdepth_mode=info.bitdepth_mode)
-        self_img.edge_ext()
-        if is_golden:
-            self.ref_imgi[MC.OD_FRAME_GOLD] = refi
-        if frame_type != 2:  # not B
-            if (self.ref_imgi[MC.OD_FRAME_PREV] < 0
-                    and self.ref_imgi[MC.OD_FRAME_NEXT] < 0):
-                self.ref_imgi[MC.OD_FRAME_PREV] = refi
-                self.ref_imgi[MC.OD_FRAME_NEXT] = refi
-            else:
-                self.ref_imgi[MC.OD_FRAME_PREV] = \
-                    self.ref_imgi[MC.OD_FRAME_NEXT]
-                self.ref_imgi[MC.OD_FRAME_NEXT] = refi
-        # Output via the display reorder queue (cropped planes).
-        planes = []
-        for pli in range(nplanes):
-            xd, yd = info.plane_dec[pli]
-            full = self_img.plane_view(pli)
-            crop = full[:(info.pic_height + (1 << yd) - 1) >> yd,
-                        :(info.pic_width + (1 << xd) - 1) >> xd]
-            if fpr:
-                # Round the 12-bit reference down to the output depth
-                # (8/10/12 bits by bitdepth_mode; reference:
-                # src/state.c:138-180 od_img_plane_copy,
-                # od_output_queue_init src/state.c:1127).
-                from daala_tpu_torch.codec.state import internal_to_output
-                depth = 8 + 2 * (info.bitdepth_mode - 1)
-                planes.append(internal_to_output(crop, depth))
-            else:
-                planes.append(crop.copy())
+        # Store reconstruction into the SELF reference image, and crop the
+        # output planes (host span store_recon).
+        with devstats.host_span("store_recon"):
+            for pli in range(nplanes):
+                self_img.plane_view(pli)[:, :] = coeff_to_ref_plane(
+                    ctmp[pli], lossless, fpr=fpr,
+                    bitdepth_mode=info.bitdepth_mode)
+            self_img.edge_ext()
+            if is_golden:
+                self.ref_imgi[MC.OD_FRAME_GOLD] = refi
+            if frame_type != 2:  # not B
+                if (self.ref_imgi[MC.OD_FRAME_PREV] < 0
+                        and self.ref_imgi[MC.OD_FRAME_NEXT] < 0):
+                    self.ref_imgi[MC.OD_FRAME_PREV] = refi
+                    self.ref_imgi[MC.OD_FRAME_NEXT] = refi
+                else:
+                    self.ref_imgi[MC.OD_FRAME_PREV] = \
+                        self.ref_imgi[MC.OD_FRAME_NEXT]
+                    self.ref_imgi[MC.OD_FRAME_NEXT] = refi
+            # Output via the display reorder queue (cropped planes).
+            planes = []
+            for pli in range(nplanes):
+                xd, yd = info.plane_dec[pli]
+                full = self_img.plane_view(pli)
+                crop = full[:(info.pic_height + (1 << yd) - 1) >> yd,
+                            :(info.pic_width + (1 << xd) - 1) >> xd]
+                if fpr:
+                    # Round the 12-bit reference down to the output depth
+                    # (8/10/12 bits by bitdepth_mode; reference:
+                    # src/state.c:138-180 od_img_plane_copy,
+                    # od_output_queue_init src/state.c:1127).
+                    from daala_tpu_torch.codec.state import internal_to_output
+                    depth = 8 + 2 * (info.bitdepth_mode - 1)
+                    planes.append(internal_to_output(crop, depth))
+                else:
+                    planes.append(crop.copy())
         # Coding-order recon, exposed for the encoder's self-check
         # (reference: src/encode.c:3231-3272 reads OD_FRAME_SELF).
         self.last_recon = planes

@@ -75,6 +75,7 @@ its JAX one; every other method is the original's:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 
@@ -91,6 +92,7 @@ from daala_tpu_torch.codec.decoder import pvq_beta
 from daala_tpu_torch.codec import mc as MC
 from daala_tpu_torch.codec import mvest
 from daala_tpu_torch.device import resolve
+from daala_tpu_torch.utils import devstats
 from daala_tpu_torch.utils import logging as LOG
 from daala_tpu_torch.entropy import ec as ec_mod
 from daala_tpu_torch.entropy.adapt import encode_cdf_adapt
@@ -1447,24 +1449,30 @@ class Encoder:
         tab = getattr(self, "_device_pvq_tab", None)
         if (tab is not None and not rdo_only
                 and not use_haar_wavelet):
-            # Vectorized flattening (models/pvqsearch.py
-            # DevicePVQTable.native_arrays): per-plane 4x4 grids,
-            # concatenated (the native side derives the same plane
-            # base offsets from F.pl dims).
-            idx, meta, yoff, ypool, sd = tab.native_arrays(st, info)
-            idx = np.ascontiguousarray(idx, np.int32)
-            meta = np.ascontiguousarray(meta, np.int32)
-            yoff = np.ascontiguousarray(yoff, np.int64)
-            ypool = np.ascontiguousarray(ypool, np.int32)
-            sd = np.ascontiguousarray(sd, np.float64)
-            tabp = np.array([idx.ctypes.data, meta.ctypes.data,
-                             yoff.ctypes.data, ypool.ctypes.data,
-                             sd.ctypes.data], np.int64)
-            keep.extend([idx, meta, yoff, ypool, sd, tabp])
-            cfg[77] = tabp.ctypes.data
+            # The host span pvq_table: the table flattened for the pass.
+            with devstats.host_span("pvq_table"):
+                # Vectorized flattening (models/pvqsearch.py
+                # DevicePVQTable.native_arrays): per-plane 4x4 grids,
+                # concatenated (the native side derives the same plane
+                # base offsets from F.pl dims).
+                idx, meta, yoff, ypool, sd = tab.native_arrays(st, info)
+                idx = np.ascontiguousarray(idx, np.int32)
+                meta = np.ascontiguousarray(meta, np.int32)
+                yoff = np.ascontiguousarray(yoff, np.int64)
+                ypool = np.ascontiguousarray(ypool, np.int32)
+                sd = np.ascontiguousarray(sd, np.float64)
+                tabp = np.array([idx.ctypes.data, meta.ctypes.data,
+                                 yoff.ctypes.data, ypool.ctypes.data,
+                                 sd.ctypes.data], np.int64)
+                keep.extend([idx, meta, yoff, ypool, sd, tabp])
+                cfg[77] = tabp.ctypes.data
         ap = self._native_adapt_ptrs()
-        err = lib.fc_encode_frame(self.enc._h, ap.ctypes.data,
-                                  cfg.ctypes.data, dcfg.ctypes.data)
+        # The final pass is the host span code_frame; the trial pass
+        # (rdo_only) runs inside its caller's span trial_pass.
+        with (contextlib.nullcontext() if rdo_only
+              else devstats.host_span("code_frame")):
+            err = lib.fc_encode_frame(self.enc._h, ap.ctypes.data,
+                                      cfg.ctypes.data, dcfg.ctypes.data)
         if err:
             raise RuntimeError("native frame encode: EC error %d" % err)
         if defer_dering:
@@ -1478,9 +1486,10 @@ class Encoder:
             dirs = np.ascontiguousarray(dirs, np.int32)
             cfg[74] = cands.ctypes.data
             cfg[75] = dirs.ctypes.data
-            err = lib.fc_encode_dering(self.enc._h, ap.ctypes.data,
-                                       cfg.ctypes.data,
-                                       dcfg.ctypes.data)
+            with devstats.host_span("code_dering"):
+                err = lib.fc_encode_dering(self.enc._h, ap.ctypes.data,
+                                           cfg.ctypes.data,
+                                           dcfg.ctypes.data)
             if err:
                 raise RuntimeError(
                     "native dering encode: EC error %d" % err)
@@ -1746,26 +1755,27 @@ class Encoder:
             # sweeps (mvest.refine_sweep) instead of the host greedy
             # loop; BMA + mesh subdivision stay in the native engine.
             sweep = self.mv_refine_mode == "sweep" and self.complexity >= 3
-            use_native_me = (getattr(self, "use_native_me",
-                                     _NATIVE_FRAME_DEFAULT)
-                             and mvest.estimate_all_native(
-                                 self.mv_grid, search_luma, refs, info,
-                                 self.search_range, lam_mv, st.adapt, vis,
-                                 self.complexity, lam_sad, frame_type,
-                                 max_level=self.mv_max_level,
-                                 iters=0 if sweep
-                                 else self._mv_refine_iters(),
-                                 decimate=getattr(self, "mv_decimate",
-                                                  0),
-                                 min_level=self.mv_level_min,
-                                 fp_fields=fp_fields,
-                                 telescope=getattr(self, "mv_telescope",
-                                                   0),
-                                 use_satd=getattr(self, "mv_satd", 0),
-                                 sel_gate_q4=getattr(self, "mv_sel_gate",
-                                                     0),
-                                 sel_disp_q8=getattr(self, "mv_sel_disp",
-                                                     0)))
+            with devstats.host_span("motion_search"):
+                use_native_me = (getattr(self, "use_native_me",
+                                         _NATIVE_FRAME_DEFAULT)
+                                 and mvest.estimate_all_native(
+                                     self.mv_grid, search_luma, refs, info,
+                                     self.search_range, lam_mv, st.adapt, vis,
+                                     self.complexity, lam_sad, frame_type,
+                                     max_level=self.mv_max_level,
+                                     iters=0 if sweep
+                                     else self._mv_refine_iters(),
+                                     decimate=getattr(self, "mv_decimate",
+                                                      0),
+                                     min_level=self.mv_level_min,
+                                     fp_fields=fp_fields,
+                                     telescope=getattr(self, "mv_telescope",
+                                                       0),
+                                     use_satd=getattr(self, "mv_satd", 0),
+                                     sel_gate_q4=getattr(self, "mv_sel_gate",
+                                                         0),
+                                     sel_disp_q8=getattr(self, "mv_sel_disp",
+                                                         0)))
             if sweep:
                 if not use_native_me:
                     raise RuntimeError(
@@ -1778,48 +1788,52 @@ class Encoder:
                     decimate=getattr(self, "mv_decimate", 0),
                     device_put_fn=self.device_put_fn)
             if not use_native_me:
-                mvest.estimate_multi(self.mv_grid, search_luma, refs,
-                                     info, self.search_range, lam=lam_mv,
-                                     adapt=st.adapt, vis=vis)
-                if self.complexity >= 2:
-                    # Adaptive mesh subdivision (reference: the
-                    # decimation + refinement stages of od_mv_est,
-                    # src/mcenc.c:4019,5211; here redesigned as greedy
-                    # splitting, see mvest.refine_mesh).
-                    mvest.refine_mesh(self.mv_grid, search_luma,
-                                      dict(refs), info, lam_sad, vis=vis,
-                                      max_level=self.mv_max_level,
-                                      lam=lam_mv, adapt=st.adapt,
-                                      frame_type=frame_type,
-                                      min_level=self.mv_level_min)
-                    if self.complexity >= 3:
-                        # Rate-aware OBMC refinement with the reference's
-                        # MV lambda (src/rate.c:1072-1075).
-                        mvest.refine_mvs(self.mv_grid, search_luma,
-                                         dict(refs), info, lam_mv,
-                                         adapt=st.adapt,
-                                         frame_type=frame_type, vis=vis,
-                                         iters=self._mv_refine_iters())
+                with devstats.host_span("motion_search"):
+                    mvest.estimate_multi(self.mv_grid, search_luma, refs,
+                                         info, self.search_range, lam=lam_mv,
+                                         adapt=st.adapt, vis=vis)
+                    if self.complexity >= 2:
+                        # Adaptive mesh subdivision (reference: the
+                        # decimation + refinement stages of od_mv_est,
+                        # src/mcenc.c:4019,5211; here redesigned as greedy
+                        # splitting, see mvest.refine_mesh).
+                        mvest.refine_mesh(self.mv_grid, search_luma,
+                                          dict(refs), info, lam_sad, vis=vis,
+                                          max_level=self.mv_max_level,
+                                          lam=lam_mv, adapt=st.adapt,
+                                          frame_type=frame_type,
+                                          min_level=self.mv_level_min)
+                        if self.complexity >= 3:
+                            # Rate-aware OBMC refinement with the reference's
+                            # MV lambda (src/rate.c:1072-1075).
+                            mvest.refine_mvs(self.mv_grid, search_luma,
+                                             dict(refs), info, lam_mv,
+                                             adapt=st.adapt,
+                                             frame_type=frame_type, vis=vis,
+                                             iters=self._mv_refine_iters())
             hook = getattr(self, "mv_override_cb", None)
             if hook is not None:
                 hook(self.frame_count, self.mv_grid,
                      dict(refs=refs, padded_in=padded_in, info=info,
                           vis=vis, lam_mv=lam_mv, lam_sad=lam_sad,
                           adapt=st.adapt, frame_type=frame_type))
-            mv_res = None
-            if use_native_me:
-                # _select_mv_res uses the unscaled mv lambda
-                # (src/rate.c:1072-1075), without the B-frame factor.
-                lam_res = max(40, (145000 * self.target_quantizer) >> 20)
-                mv_res = mvest.select_mv_res_native(
-                    self.mv_grid, search_luma, refs, info, lam_res,
-                    st.adapt, vis, st.frame_type,
-                    res_min=self.mv_res_min)
-            if mv_res is None:
-                mv_res = self._select_mv_res(search_luma)
-            MC.mc_predict_frame(self.mv_grid, self.ref_imgs, self.ref_imgi,
-                                info, self_img)
-            self._encode_mvs(enc, num_refs, mv_res=mv_res)
+            with devstats.host_span("mv_resolution"):
+                mv_res = None
+                if use_native_me:
+                    # _select_mv_res uses the unscaled mv lambda
+                    # (src/rate.c:1072-1075), without the B-frame factor.
+                    lam_res = max(40, (145000 * self.target_quantizer) >> 20)
+                    mv_res = mvest.select_mv_res_native(
+                        self.mv_grid, search_luma, refs, info, lam_res,
+                        st.adapt, vis, st.frame_type,
+                        res_min=self.mv_res_min)
+                if mv_res is None:
+                    mv_res = self._select_mv_res(search_luma)
+            with devstats.host_span("mc_predict"):
+                MC.mc_predict_frame(self.mv_grid, self.ref_imgs,
+                                    self.ref_imgi, info, self_img)
+            with devstats.host_span("code_mvs"):
+                self._encode_mvs(enc, num_refs, mv_res=mv_res)
         # Block size decision (reference: src/encode.c:3086-3096):
         # complexity >= 2 runs the full trial-encode RDO merge pass from
         # an all-4x4 map; complexity 0-1 uses the open-loop variance
@@ -1848,11 +1862,12 @@ class Encoder:
                 self._device_rdo = KF.analyze_rdo_pyramid(
                     st, info, padded_in, mc_pl, st.quantizer == 0,
                     self.device, device_put_fn=self.device_put_fn)
-            cp = self._checkpoint_full()
-            self._encode_coefficients(padded_in, self_img, is_keyframe,
-                                      use_haar_wavelet, planes_u8,
-                                      rdo_only=1)
-            self._rollback_full(cp)
+            with devstats.host_span("trial_pass"):
+                cp = self._checkpoint_full()
+                self._encode_coefficients(padded_in, self_img, is_keyframe,
+                                          use_haar_wavelet, planes_u8,
+                                          rdo_only=1)
+                self._rollback_full(cp)
             self._device_rdo = None
         else:
             from daala_tpu_torch.codec import blocksize
@@ -1921,56 +1936,58 @@ class Encoder:
         self._device_d = None
         self._device_md = None
         self._device_pvq_tab = None
-        # Store the reconstruction into SELF + rotate references.
-        fpr = bool(info.full_precision_references)
-        for pli in range(nplanes):
-            self_img.plane_view(pli)[:, :] = coeff_to_ref_plane(
-                ctmp[pli], st.quantizer == 0, fpr=fpr,
-                bitdepth_mode=info.bitdepth_mode)
-        self_img.edge_ext()
-        if is_golden:
-            self.ref_imgi[MC.OD_FRAME_GOLD] = refi
-        # Reference updates after coding (reference:
-        # src/encode.c:3145-3178).
-        if self.b_frames == 0:
-            self.ref_imgi[MC.OD_FRAME_PREV] = refi
-        elif frame_type != 2:
-            if (self.ref_imgi[MC.OD_FRAME_PREV] < 0
-                    and self.ref_imgi[MC.OD_FRAME_NEXT] < 0):
+        # Store the reconstruction into SELF + rotate references (host
+        # span store_recon, with the packet and the cropped recon).
+        with devstats.host_span("store_recon"):
+            fpr = bool(info.full_precision_references)
+            for pli in range(nplanes):
+                self_img.plane_view(pli)[:, :] = coeff_to_ref_plane(
+                    ctmp[pli], st.quantizer == 0, fpr=fpr,
+                    bitdepth_mode=info.bitdepth_mode)
+            self_img.edge_ext()
+            if is_golden:
+                self.ref_imgi[MC.OD_FRAME_GOLD] = refi
+            # Reference updates after coding (reference:
+            # src/encode.c:3145-3178).
+            if self.b_frames == 0:
                 self.ref_imgi[MC.OD_FRAME_PREV] = refi
-                self.ref_imgi[MC.OD_FRAME_NEXT] = refi
-            else:
-                self.ref_imgi[MC.OD_FRAME_PREV] = \
-                    self.ref_imgi[MC.OD_FRAME_NEXT]
-                self.ref_imgi[MC.OD_FRAME_NEXT] = refi
-        self.frame_count += 1
-        if frame_type != 2:
-            self.ip_frame_count += 1
-        packet = enc.done()
-        LOG.od_log(LOG.OD_LOG_ENCODER, LOG.OD_LOG_INFO,
-                   "frame %d type %d display %d quantizer %d bytes %d",
-                   self.frame_count, frame_type, display_order,
-                   st.quantizer, len(packet))
-        if getattr(self, "record_pass1", False):
-            self.rc.record_pass1(frame_type, int(is_golden),
-                                 len(packet) * 8, st.quantizer)
-        if self.rc.target_bitrate > 0:
-            self.rc.update(len(packet) * 8, int(is_golden), frame_type,
-                           0, self.target_quantizer)
-        self._packet = packet
-        self.recon = []
-        for pli in range(nplanes):
-            xd, yd = info.plane_dec[pli]
-            full = self_img.plane_view(pli)
-            crop = full[:(info.pic_height + (1 << yd) - 1) >> yd,
-                        :(info.pic_width + (1 << xd) - 1) >> xd]
-            if fpr:
-                from daala_tpu_torch.codec.state import internal_to_output
-                crop = internal_to_output(
-                    crop, 8 + 2 * (info.bitdepth_mode - 1))
-                self.recon.append(crop)
-            else:
-                self.recon.append(crop.copy())
+            elif frame_type != 2:
+                if (self.ref_imgi[MC.OD_FRAME_PREV] < 0
+                        and self.ref_imgi[MC.OD_FRAME_NEXT] < 0):
+                    self.ref_imgi[MC.OD_FRAME_PREV] = refi
+                    self.ref_imgi[MC.OD_FRAME_NEXT] = refi
+                else:
+                    self.ref_imgi[MC.OD_FRAME_PREV] = \
+                        self.ref_imgi[MC.OD_FRAME_NEXT]
+                    self.ref_imgi[MC.OD_FRAME_NEXT] = refi
+            self.frame_count += 1
+            if frame_type != 2:
+                self.ip_frame_count += 1
+            packet = enc.done()
+            LOG.od_log(LOG.OD_LOG_ENCODER, LOG.OD_LOG_INFO,
+                       "frame %d type %d display %d quantizer %d bytes %d",
+                       self.frame_count, frame_type, display_order,
+                       st.quantizer, len(packet))
+            if getattr(self, "record_pass1", False):
+                self.rc.record_pass1(frame_type, int(is_golden),
+                                     len(packet) * 8, st.quantizer)
+            if self.rc.target_bitrate > 0:
+                self.rc.update(len(packet) * 8, int(is_golden), frame_type,
+                               0, self.target_quantizer)
+            self._packet = packet
+            self.recon = []
+            for pli in range(nplanes):
+                xd, yd = info.plane_dec[pli]
+                full = self_img.plane_view(pli)
+                crop = full[:(info.pic_height + (1 << yd) - 1) >> yd,
+                            :(info.pic_width + (1 << xd) - 1) >> xd]
+                if fpr:
+                    from daala_tpu_torch.codec.state import internal_to_output
+                    crop = internal_to_output(
+                        crop, 8 + 2 * (info.bitdepth_mode - 1))
+                    self.recon.append(crop)
+                else:
+                    self.recon.append(crop.copy())
         if self._bsize_dist_file is not None:
             import math as _math
             for pli in range(nplanes):

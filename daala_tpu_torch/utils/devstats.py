@@ -1,6 +1,6 @@
 """Device-path counters: dispatches, host<->device bytes, fetch wall
 time, kernel builds, kernel launches by kernel, and the host wall of
-named spans.
+named spans in two tables.
 
 The counterpart of daala_tpu/utils/devstats.py.  Every device front end
 of the port (models/keyframe.py) reports its traffic here, and every
@@ -9,21 +9,41 @@ where it launches its kernel, and nowhere else.  Bytes count only what
 crosses to or from a CUDA device; a CPU run counts dispatches and no
 bytes.
 
-The analysis entry points (`analyze_*`) each run in a span of their
-name, and so does the finish() they return, which fetches their planes
-to the host and so waits for the device: the span's wall covers the
-device work they launched.
+Two tables of spans, each the summed host wall of a block by name:
+
+- SPANS (`span`): the blocks that cover device work.  The analysis
+  entry points (`analyze_*`) each run in a span of their name, and so
+  does the finish() they return, which fetches their planes to the
+  host and so waits for the device: the span's wall covers the device
+  work they launched.  So do the PVQ band search, the SAD fields, the
+  sweep (`refine_sweep`), the dering candidates, synthesis and dering.
+- HOST_SPANS (`host_span`): the host passes between them, placed at the
+  native call sites of codec/encoder.py and codec/decoder.py (motion
+  search, OBMC prediction, the trial pass, the coding pass, the parse,
+  storing the reconstruction, ...).
+
+Two placement rules: a host span encloses no device span and no other
+host span, and a device span encloses no host span.  So a frame's wall
+is its device spans, plus its host spans, plus what no span covers.
+
+While a torch profiler records, each span of either table also opens a
+profiler range "span:<name>" around its block, so the port's passes
+and the device's kernels and copies lie on one clock, the profiler's,
+and every idle gap of a trace can be put down to the pass that ran on
+the host.  With no profiler recording, a span asks once whether one
+records and builds no range: two clock reads, that question and one
+locked dict update.
 
 The PVQ band search (models/pvqsearch.py) adds the rows it searched
 and the rows it marked invalid (searched on the host) under COUNTS;
 `prefetch` starts device->host copies early, and their bytes count once.
 
-Counters are process-global and cheap (two clock reads per span);
-`reset()` + `snapshot()` bracket a measured region (chip_smoke.py and
-utils/profile.py print them).  Every update holds one lock, so threads
-that encode at once (parallel/mesh.py encode_clips_batched) lose no
-count.  A span sums the host walls of every thread that entered it, so
-with threads a span can exceed the wall clock.
+Counters are process-global and cheap; `reset()` + `snapshot()`
+bracket a measured region (chip_smoke.py and utils/profile.py print
+them).  Every update holds one lock, so threads that encode at once
+(parallel/mesh.py encode_clips_batched) lose no count.  A span sums the
+host walls of every thread that entered it, so with threads a span can
+exceed the wall clock.
 """
 
 from __future__ import annotations
@@ -40,7 +60,8 @@ _ZERO = dict(dispatches=0, h2d_bytes=0, d2h_bytes=0, fetch_wall_s=0.0)
 STATS = dict(_ZERO)
 LAUNCHES: dict = {}  # kernel name -> launches since reset()
 BUILDS: dict = {}  # kernel name -> nvcc seconds (kept across reset())
-SPANS: dict = {}  # span name -> host wall seconds since reset()
+SPANS: dict = {}  # device span name -> host wall seconds since reset()
+HOST_SPANS: dict = {}  # host span name -> host wall seconds since reset()
 COUNTS: dict = {}  # counter name -> total since reset()
 # device tensor -> (pinned host copy, event recorded after the copy)
 _PREFETCHED = WeakIdKeyDictionary()
@@ -57,6 +78,7 @@ def reset():
         STATS.update(_ZERO)
         LAUNCHES.clear()
         SPANS.clear()
+        HOST_SPANS.clear()
         COUNTS.clear()
 
 
@@ -66,6 +88,7 @@ def snapshot():
         s["launches"] = dict(LAUNCHES)
         s["builds_s"] = dict(BUILDS)
         s["spans_s"] = dict(SPANS)
+        s["host_spans_s"] = dict(HOST_SPANS)
         s["counts"] = dict(COUNTS)
     return s
 
@@ -75,14 +98,38 @@ def count(name, value):
     _add(COUNTS, name, value)
 
 
+def _range(name):
+    """The profiler range of span `name` while a torch profiler records,
+    else None."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    return torch.profiler.record_function("span:" + name)
+
+
 @contextlib.contextmanager
-def span(name):
-    """Add the host wall time of the enclosed block to SPANS[name]."""
+def _timed(table, name):
+    rng = _range(name)
     t0 = time.perf_counter()
     try:
-        yield
+        if rng is None:
+            yield
+        else:
+            with rng:
+                yield
     finally:
-        _add(SPANS, name, time.perf_counter() - t0)
+        _add(table, name, time.perf_counter() - t0)
+
+
+def span(name):
+    """Add the host wall time of the enclosed block, which covers device
+    work, to SPANS[name]."""
+    return _timed(SPANS, name)
+
+
+def host_span(name):
+    """Add the host wall time of the enclosed host pass to
+    HOST_SPANS[name]."""
+    return _timed(HOST_SPANS, name)
 
 
 def launch(name):

@@ -16,8 +16,9 @@ mv_refine_mode="sweep" (either tier).  It prints:
 2. per frame, after one warm-up encode of the clip, REPS times: the
    host wall of `encode_frame` and the devstats counters of that frame
    (the `analyze_*`, `search_frame`, `fullpel_sad_fields` and
-   `refine_sweep` spans, fetch wall, host<->device bytes, kernel
-   launches, the PVQ rows searched and marked invalid);
+   `refine_sweep` spans, the host spans of the native passes between
+   them, fetch wall, host<->device bytes, kernel launches, the PVQ rows
+   searched and marked invalid);
 3. a torch.profiler trace of a fresh encoder's keyframe and first inter
    frame, written as Chrome traces into `--out` and read back: the
    frame's wall, the device's busy time (the union of its kernel and
@@ -260,11 +261,13 @@ def per_frame(frames, device, sweep, lean=False):
             row["front_end_share"] = row["front_end_s"] / wall
             rows.append(row)
             print("rep %d frame %d wall %.4f s; front end %.4f s (%.2f%%); "
-                  "spans %s; fetch %.4f s; d2h %d h2d %d; launches %s; "
-                  "counts %s"
+                  "spans %s; host spans %s; fetch %.4f s; d2h %d h2d %d; "
+                  "launches %s; counts %s"
                   % (rep, i, wall, row["front_end_s"],
                      100 * row["front_end_share"],
                      {k: round(v, 4) for k, v in snap["spans_s"].items()},
+                     {k: round(v, 4)
+                      for k, v in snap["host_spans_s"].items()},
                      snap["fetch_wall_s"], snap["d2h_bytes"],
                      snap["h2d_bytes"], snap["launches"], snap["counts"]))
         enc.flush()

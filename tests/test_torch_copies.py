@@ -53,7 +53,9 @@ COPIES = {
         # batched dering
         "Decoder.__init__", "Decoder._decode_coefficients_native",
         "Decoder._apply_dering_device", "Decoder._decode_coefficients",
-        "Decoder._decode_dering"),
+        "Decoder._decode_dering",
+        # devstats host spans
+        "Decoder.decode_packet"),
     "codec/dist.py": (),
     "codec/encoder.py": (
         # device, use_device_analysis, use_device_pvq and
