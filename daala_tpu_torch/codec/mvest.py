@@ -398,7 +398,7 @@ def estimate_all_native(grid, cur_luma, refs, info, search_range, lam,
                         max_level=2, iters=2, mesh_search_range=8,
                         decimate=0, min_level=0, fp_fields=None,
                         telescope=0, use_satd=0, sel_gate_q4=0,
-                        sel_disp_q8=0):
+                        sel_disp_q8=0, threads=0):
     """One native call covering estimate_multi + refine_mesh +
     refine_mvs (daala_tpu/native/me_enc.inc me_estimate), with decisions
     identical to the Python pipeline.  Returns True when the native
@@ -406,7 +406,14 @@ def estimate_all_native(grid, cur_luma, refs, info, search_range, lam,
 
     fp_fields: optional per-search-ref device SAD fields
     (models/mefield.py fullpel_sad_fields); consumed as exact lookups,
-    decisions unchanged."""
+    decisions unchanged.
+
+    The greedy refinement runs as a wavefront over host threads, as many
+    as the process's CPU affinity gives and the grid's width can use;
+    `threads` > 0 forces the count (decisions are the same at any
+    count).  Adds to the devstats counters `me_refine_visits` (the
+    refinement's vertex evaluations), `me_refine_threads` (the threads
+    it ran on, one call's most) and `me_refine_us` (its wall, in us)."""
     from daala_tpu_torch import native as native_mod
     lib = native_mod.get_lib()
     if lib is None:
@@ -416,7 +423,10 @@ def estimate_all_native(grid, cur_luma, refs, info, search_range, lam,
     cur = np.ascontiguousarray(cur_luma, np.uint8)
     planes4 = _ref_slot_planes(refs, info)
     gout = np.zeros(4, np.int32)
-    cfg = np.zeros(46, np.int64)
+    refine = np.zeros(3, np.int64)
+    cfg = np.zeros(48, np.int64)
+    cfg[46] = refine.ctypes.data
+    cfg[47] = threads
     # Selective-thorough subdivision gate (decimate=6), Q4 multiple of
     # the frame-mean cell SAD; 0 = native default (24 = 1.5x mean).
     cfg[44] = sel_gate_q4
@@ -475,6 +485,9 @@ def estimate_all_native(grid, cur_luma, refs, info, search_range, lam,
     lib.me_estimate(cfg.ctypes.data)
     grid.global_mvs = [(int(gout[2 * i]), int(gout[2 * i + 1]))
                        for i in range(len(refs))]
+    for name, value in zip(("me_refine_visits", "me_refine_threads",
+                            "me_refine_us"), refine.tolist()):
+        devstats.count(name, value)
     return True
 
 

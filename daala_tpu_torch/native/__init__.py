@@ -65,7 +65,7 @@ def get_lib():
                     subprocess.run(
                         ["g++", "-O3", "-march=native", "-fwrapv",
                          "-ffp-contract=off", "-fno-math-errno",
-                         "-std=c++17", "-shared",
+                         "-std=c++17", "-shared", "-pthread",
                          "-fPIC", _SRC, "-o", tmp],
                         check=True, capture_output=True)
                 except subprocess.CalledProcessError:
@@ -73,7 +73,7 @@ def get_lib():
                     subprocess.run(
                         ["g++", "-O3", "-fwrapv", "-ffp-contract=off",
                          "-fno-math-errno", "-std=c++17", "-shared",
-                         "-fPIC", _SRC, "-o",
+                         "-pthread", "-fPIC", _SRC, "-o",
                          tmp],
                         check=True, capture_output=True)
                 # Verify the freshly-built library actually loads before

@@ -73,7 +73,8 @@ COPIES = {
     "codec/headers.py": (),
     "codec/mc.py": ("stmt:_NLIB", "_nlib", "pred_l0_native",
                     "_predict_frame_plane_native"),
-    "codec/mvest.py": ("refine_sweep",),
+    # the port's sweep; the greedy refinement's counters
+    "codec/mvest.py": ("refine_sweep", "estimate_all_native"),
     "codec/pvq_codec.py": (),
     "codec/quantizer.py": (),
     "codec/rate.py": (),
@@ -84,7 +85,7 @@ COPIES = {
     "entropy/ec.py": (),
     "entropy/ec_native.py": (),
     "entropy/models.py": (),
-    "native/__init__.py": (),
+    "native/__init__.py": ("get_lib",),  # the engine starts threads
     "ops/_lifting.py": (),
     "ops/_tables.py": (),
     # numpy or torch in place of numpy or jax.numpy; blocks_of/unblocks
@@ -119,6 +120,30 @@ COPIES = {
 }
 NATIVE_SOURCES = ["ec_core.cc", "bs_enc.inc", "frame_dec.inc",
                   "frame_enc.inc", "lifting_gen.inc", "me_enc.inc"]
+# The native sources whose copy differs from the original, by top-level
+# piece (_cpp_pieces): the greedy refinement of me_enc.inc runs as a
+# wavefront over host threads, bit-identical to the original's serial
+# loop (tests/test_torch_me_wavefront.py).
+NATIVE_DIVERGES = {
+    "me_enc.inc": dict(
+        # new in the port: the headers, the lanes, the thread pool, the
+        # report, the wavefront
+        added=("#include <atomic>", "#include <condition_variable>",
+               "#include <functional>", "#include <memory>",
+               "#include <mutex>", "#include <thread>",
+               "#include <linux/futex.h>", "#include <sched.h>",
+               "#include <sys/syscall.h>", "#include <time.h>",
+               "#include <unistd.h>",
+               "RefineLane", "lane_ctx", "lane_eval_block", "RefinePool",
+               "RefineReport", "RefineWave", "refine_vertex", "RowDone",
+               "refine_wave_pass"),
+        # each lane's plane, memo and rects in place of the context's;
+        # atomic block sums read once a vertex; the prelude over the lanes
+        changed=("fc_refresh_block", "fc_build", "fc_region_sad",
+                 "fc_eval_cand", "refine_mvs", "refine_mvs_impl"),
+        # every line of the original kept, in order: the report's line
+        extended=("me_estimate",)),
+}
 
 
 def _port_modules():
@@ -237,12 +262,96 @@ def test_copy_differs_only_where_listed(rel):
     assert differ == sorted(COPIES[rel])
 
 
+def _cpp_pieces(text):
+    """({name: lines}, rest) of a C++ source, blank lines left out: each
+    top-level definition at column 0 (a function `... name(`, `struct
+    name`, `class name`) with the comment lines directly above it,
+    through the next line at column 0 that opens with '}' (a declaration
+    ending in ';', or a body on the header's line, on its line alone),
+    under its name (a declaration and its definition under one); each
+    #include line under itself; every other line in `rest`."""
+    pieces, rest, pending = {}, [], []
+    lines = text.split("\n")
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        i += 1
+        if not line.strip():
+            rest += pending
+            pending = []
+            continue
+        if line.startswith("//"):
+            pending.append(line)
+            continue
+        m = re.match(r"(?:struct|class) (?:alignas\(\d+\) )?(\w+)", line)
+        f = None
+        if line[:1].isalpha() and not line.startswith(
+                ("namespace", "extern", "using", "template")):
+            f = re.match(r"[^;{(]*?(\w+)\(", line)
+        name = (line if line.startswith("#include")
+                else m.group(1) if m else f.group(1) if f else None)
+        if name is None:
+            rest += pending + [line]
+            pending = []
+            continue
+        span = pending + [line]
+        pending = []
+        one_line = line.rstrip().endswith(";") or (
+            "{" in line and line.count("{") == line.count("}"))
+        if name != line and not one_line:
+            while not lines[i].startswith("}"):
+                if lines[i].strip():
+                    span.append(lines[i])
+                i += 1
+            span.append(lines[i])
+            i += 1
+        pieces.setdefault(name, []).extend(span)
+    return pieces, rest + pending
+
+
+def _is_subsequence(short, long):
+    it = iter(long)
+    return all(line in it for line in short)
+
+
 @pytest.mark.parametrize("name", NATIVE_SOURCES)
 def test_native_source_is_the_original(name):
-    with open(os.path.join(REPO, "daala_tpu", "native", name), "rb") as f:
+    """Byte for byte, but for the named pieces of NATIVE_DIVERGES: those
+    added are the port's alone, those changed differ, those extended keep
+    every line of the original in order, and every other piece and line
+    is the original's."""
+    with open(os.path.join(REPO, "daala_tpu", "native", name)) as f:
         orig = f.read()
-    with open(os.path.join(PKG, "native", name), "rb") as f:
-        assert f.read() == orig
+    with open(os.path.join(PKG, "native", name)) as f:
+        copy = f.read()
+    if name not in NATIVE_DIVERGES:
+        assert copy == orig
+        return
+    named = NATIVE_DIVERGES[name]
+    o_pieces, o_rest = _cpp_pieces(orig)
+    c_pieces, c_rest = _cpp_pieces(copy)
+    assert c_rest == o_rest
+    for k in named["added"]:
+        assert k in c_pieces and k not in o_pieces, k
+    for k in named["changed"] + named["extended"]:
+        assert k in o_pieces and c_pieces.get(k, o_pieces[k]) != o_pieces[k], k
+    for k in named["extended"]:
+        assert _is_subsequence(o_pieces[k], c_pieces[k]), k
+    differ = sorted(k for k in set(o_pieces) | set(c_pieces)
+                    if o_pieces.get(k) != c_pieces.get(k))
+    assert differ == sorted(sum(named.values(), ()))
+
+
+def test_cpp_pieces_find_every_definition():
+    """The splitter of the native sources names every definition of
+    me_enc.inc the original has, and its rest holds no function body."""
+    with open(os.path.join(REPO, "daala_tpu", "native", "me_enc.inc")) as f:
+        pieces, rest = _cpp_pieces(f.read())
+    for k in ("Grid", "MeCtx", "FieldCache", "refine_mvs", "refine_mvs_impl",
+              "fc_eval_cand", "try_vertex", "me_estimate", "sweep_ctx"):
+        assert k in pieces, k
+    assert len(pieces["refine_mvs_impl"][0]) < 80  # its declaration first
+    assert not any(line.startswith("  if (") for line in rest)
 
 
 def test_lifting_copy_differs_only_in_its_import_line():
