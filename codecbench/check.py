@@ -6,23 +6,12 @@ references to the outputs, copying the host arrays that the encoder
 reuses, and touching neither the device nor the port's counters.  Once
 the window has closed, `check` works every sampled output out again
 with codecbench/reference/ (plain PyTorch that imports nothing of the
-port) and counts what differs:
+port) and counts what differs.
 
-encode cells (the frame's keyframe and inter frames as they came):
-  sad_fields_off   full-pel SAD field entries, against their definition
-                   on the source luma and the reference planes
-  sweep_cells_off  (sweep configurations) 8x8-cell SADs of the colour
-                   sweep's leaf batches, against the reference's OBMC
-                   prediction of the same leaves and MVs on the source
-  coeffs_off       coefficients of the front end's d (and md) planes,
-                   against the lapped transform of the source frame
-                   (and of the OBMC prediction) under the frame's
-                   block-size map
-  pvq_rows_off     band rows whose decision (noref, gain, theta, max
-                   theta, k, valid, pulses, skip_diff) differs from the
-                   reference band search on the reference's planes,
-                   under the quantisation matrices that the reference
-                   works out from the configuration
+encode cells: the encode stages that the configuration names under
+`checked_stages` (without the key, codecbench/stages' default list),
+one file each, codecbench/stages/<name>.py (that package's docstring
+gives a stage's parts).  Besides the stages' own numbers:
   recon_off        pixels of the window's first frames where the port's
                    decoder, on the stream, differs from the encoder's
                    reconstruction
@@ -30,7 +19,9 @@ decode cells:
   planes_off       decoded pixels against the reference synthesis and
                    dering of the frame's parsed coefficients
 both:
-  stages_missing   sampled frames whose device layers were never seen
+  stages_missing   sampled frames that lack a stage their cell checks
+                   (encode: one that the configuration names; decode:
+                   the synthesis)
 
 The stages that run on the host (the block-size and motion decisions,
 the sweep's candidates and their acceptance, the OBMC prediction of the
@@ -40,26 +31,24 @@ holds the stream to the reconstruction end to end.  Every comparison
 is exact, so every limit is 0 (PERF.md gives the readings).
 
 `control` makes the same comparisons with the reference computed one
-precision below the one the codec states (int16 in place of int32, the
-OBMC filter's accumulator wrapped to int16, the PVQ search's planes
-rounded to bfloat16) put in the port's place.
+precision below the one the codec states, put in the port's place: each
+stage says how, and the decode check runs the synthesis' lifting in
+int16 in place of int32.
 """
 
 from __future__ import annotations
+
+import importlib
+import importlib.util
+import os
 
 import numpy as np
 import torch
 
 from codecbench.reference import backend as RB
-from codecbench.reference import frontend as RF
-from codecbench.reference import obmc as RO
-from codecbench.reference import pvq as RV
-from codecbench.reference import sad as RS
-from codecbench.reference import search as RP
+from codecbench.stages import default_names
 
-LIMITS = {"sad_fields_off": 0, "sweep_cells_off": 0, "coeffs_off": 0,
-          "pvq_rows_off": 0, "recon_off": 0, "planes_off": 0,
-          "stages_missing": 0}
+LIMITS = {"recon_off": 0, "planes_off": 0, "stages_missing": 0}
 PLANE_DEC = ((0, 0), (1, 1), (1, 1))  # 4:2:0
 
 
@@ -74,27 +63,60 @@ def sample_frames(seed, within, count):
     return sorted({0, within - 1} | {int(i) for i in pick})
 
 
-def _planes(sps):
-    """The whole planes of a list of ShardedPlanes as tensors on their
-    device (no copy for a single tile)."""
-    return [sp.to(sp.device) for sp in sps]
+def stage_names(config):
+    """The encode stages that the configuration checks, in order."""
+    if "checked_stages" in config:
+        return list(config["checked_stages"])
+    return default_names(config)
+
+
+def load_stages(root, config):
+    """{name: module} of the configuration's stages, each loaded from
+    codecbench/stages/<name>.py under the checkout `root`."""
+    out = {}
+    for name in stage_names(config):
+        spec = importlib.util.spec_from_file_location(
+            "codecbench_stage_" + name.replace(".", "_").replace("-", "_"),
+            os.path.join(root, "codecbench", "stages", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out[name] = mod
+    for name, mod in out.items():
+        lacking = [n for n in getattr(mod, "REQUIRES", ()) if n not in out]
+        if lacking:
+            raise ValueError("stage %s needs the stages %s beside it"
+                             % (name, ", ".join(lacking)))
+    return out
+
+
+def limits(stages):
+    """{number: limit} of the stages' numbers and the check's own."""
+    out = {k: lim for mod in stages.values()
+           for k, lim in mod.NUMBERS.items()}
+    out.update(LIMITS)
+    return out
 
 
 class Capture:
     """Wraps the port's stage entry points for the sampled frames; the
-    window sets `frame` before each frame."""
+    window sets `frame` before each frame.  `rec[frame][stage]` holds
+    what a stage recorded."""
 
-    def __init__(self, sample):
+    def __init__(self, sample, stages=None):
         self.sample = set(sample)
+        self.stages = stages or {}
         self.frame = None
         self.rec = {}
         self._undo = []
 
-    def _on(self):
-        return self.frame in self.sample
-
-    def _slot(self):
-        return self.rec.setdefault(self.frame, {})
+    def slot(self, name):
+        """A function that gives the stage `name`'s record of the frame
+        in flight (made on first use), or None outside the sample."""
+        def get():
+            if self.frame not in self.sample:
+                return None
+            return self.rec.setdefault(self.frame, {}).setdefault(name, {})
+        return get
 
     def _patch(self, mod, name, make):
         orig = getattr(mod, name)
@@ -107,94 +129,19 @@ class Capture:
         self._undo = []
 
     def install_encode(self):
-        from daala_tpu_torch.models import keyframe as KF
-        from daala_tpu_torch.models import mefield as MF
-        from daala_tpu_torch.models import mesweep as MS
-        from daala_tpu_torch.models import pvqsearch as PS
-
-        def sad(orig):
-            def f(cur, refs_padded, pad, vis, nvmvbs, nhmvbs, r=16, **kw):
-                out = orig(cur, refs_padded, pad, vis, nvmvbs, nhmvbs, r,
-                           **kw)
-                if self._on():
-                    self._slot()["sad"] = dict(
-                        refs=[np.array(p) for p in refs_padded], pad=pad,
-                        vis=tuple(vis), nvmvbs=nvmvbs, nhmvbs=nhmvbs, r=r,
-                        out=[np.array(o) for o in out])
-                return out
-            return f
-
-        def keyframe(orig):
-            def f(state, info, padded_planes, lossless, device, **kw):
-                out, finish = orig(state, info, padded_planes, lossless,
-                                   device, **kw)
-                if self._on():
-                    self._slot()["front"] = dict(
-                        bsize=np.array(state.bsize), mc=None,
-                        d=_planes(out), md=None)
-                return out, finish
-            return f
-
-        def inter(orig):
-            def f(state, info, padded_planes, mc_planes, lossless, device,
-                  **kw):
-                d, md, finish = orig(state, info, padded_planes, mc_planes,
-                                     lossless, device, **kw)
-                if self._on():
-                    self._slot()["front"] = dict(
-                        bsize=np.array(state.bsize),
-                        mc=[np.array(p) for p in mc_planes],
-                        d=_planes(d), md=_planes(md))
-                return d, md, finish
-            return f
-
-        def search(orig):
-            def f(st, info, quantizer, d_planes, md_planes, lam,
-                  is_keyframe=False, use_masking=True, **kw):
-                finish = orig(st, info, quantizer, d_planes, md_planes, lam,
-                              is_keyframe=is_keyframe,
-                              use_masking=use_masking, **kw)
-                if not self._on():
-                    return finish
-                cw = st.adapt.pvq.pvq_codeword_ctx
-                slot = self._slot()
-                slot["search"] = dict(
-                    k1=np.array(cw.pvq_k1_cdf),
-                    split=np.array(cw.pvq_split_cdf), quantizer=quantizer,
-                    lam=float(lam), is_keyframe=bool(is_keyframe))
-
-                def finished():
-                    table = finish()
-                    slot["search"]["table"] = port_table(table)
-                    return table
-                return finished
-            return f
-
-        def leaf_cells(orig):
-            def f(state, lms, pos, srcs, mvs, ocs, ss):
-                out = orig(state, lms, pos, srcs, mvs, ocs, ss)
-                if self._on():
-                    slot = self._slot().setdefault(
-                        "sweep", dict(planes4=state.planes4, pad=state.pad,
-                                      calls=[]))
-                    slot["calls"].append((lms, *(np.array(a) for a in (
-                        pos, srcs, mvs, ocs, ss, out))))
-                return out
-            return f
-
-        self._patch(MF, "fullpel_sad_fields", sad)
-        self._patch(MS, "leaf_cells_batch", leaf_cells)
-        self._patch(KF, "analyze_keyframe", keyframe)
-        self._patch(KF, "analyze_inter", inter)
-        self._patch(PS, "search_frame", search)
+        for stage, mod in self.stages.items():
+            slot = self.slot(stage)
+            for module, name, wrap in mod.ENTRIES:
+                self._patch(importlib.import_module(module), name,
+                            lambda orig: wrap(orig, slot))
 
     def install_decode(self):
         from daala_tpu_torch.models import synthesis as SY
 
         def synth(orig):
             def f(state, info, d_planes, device, **kw):
-                if self._on():
-                    self._slot()["synth"] = dict(
+                if self.frame in self.sample:
+                    self.rec.setdefault(self.frame, {})["synth"] = dict(
                         d=[np.array(p) for p in d_planes],
                         bsize=np.array(state.bsize),
                         bskip=[np.array(b) for b in state.bskip],
@@ -206,40 +153,35 @@ class Capture:
         self._patch(SY, "synthesize_frame", synth)
 
 
-def port_table(table):
-    """The port's DevicePVQTable as the reference's dict: (plane, leaf
-    size, band) -> by4, bx4, ints, y, skip_diff."""
-    out = {}
-    for g in table.groups:
-        for band, r in g["bands"].items():
-            out[(g["pli"], g["bs"], band)] = dict(
-                by4=np.array(g["by4"]), bx4=np.array(g["bx4"]),
-                ints=np.stack([r[k] for k in ("noref", "qg", "itheta",
-                                              "ts", "k", "valid")], 1),
-                y=np.array(r["y"]), skip_diff=np.array(r["skip_diff"]))
-    return out
+class Frame:
+    """One sampled encode frame as the stages compare it: its index,
+    every stage's record (`rec`), the source planes, the picture and
+    frame sizes, the device the reference runs on, whether this is the
+    control, and a memo of reference results that several stages
+    share."""
+
+    def __init__(self, index, rec, source, config, dev, control):
+        self.index = index
+        self.rec = rec
+        self.source = source
+        self.config = config
+        self.w, self.h = config["width"], config["height"]
+        self.fw, self.fh = (self.w + 63) & ~63, (self.h + 63) & ~63
+        self.plane_dec = PLANE_DEC
+        self.dev = dev
+        self.control = control
+        self.idt = torch.int16 if control else torch.int32
+        self._memo = {}
+
+    def memo(self, key, make):
+        if key not in self._memo:
+            self._memo[key] = make()
+        return self._memo[key]
 
 
-def rows_off(got, want):
-    """Rows of the reference table `want` that `got` lacks or decides
-    otherwise, plus rows of `got` the reference does not have.  A NaN
-    skip_diff (a band of zero gain) equals a NaN."""
-    off = sum(len(t["ints"]) for k, t in got.items() if k not in want)
-    for key, w in want.items():
-        g = got.get(key)
-        m = len(w["ints"])
-        if (g is None or not np.array_equal(g["by4"], w["by4"])
-                or not np.array_equal(g["bx4"], w["bx4"])):
-            off += m
-            continue
-        gs, ws = g["skip_diff"], w["skip_diff"]
-        same = ((g["ints"] == w["ints"]).all(1) & (g["y"] == w["y"]).all(1)
-                & ((gs == ws) | (np.isnan(gs) & np.isnan(ws))))
-        off += int(m - same.sum())
-    return off
-
-
-def _count_off(got, want):
+def count_off(got, want):
+    """Entries of `got` that differ from `want`; all of the larger where
+    the shapes differ."""
     got = got.cpu() if torch.is_tensor(got) else torch.from_numpy(
         np.asarray(got))
     want = want.cpu() if torch.is_tensor(want) else torch.from_numpy(
@@ -249,99 +191,38 @@ def _count_off(got, want):
     return int((got.to(torch.int64) != want.to(torch.int64)).sum())
 
 
-def _all_off(gots, wants):
+def all_off(gots, wants):
     """Mismatches over lists of planes; a missing plane counts whole."""
     if len(gots) != len(wants):
         return sum(w.numel() for w in wants) or 1
-    return sum(_count_off(g, w) for g, w in zip(gots, wants))
+    return sum(count_off(g, w) for g, w in zip(gots, wants))
+
+
+def _needed(mod, f):
+    return f > 0 or not getattr(mod, "INTER_ONLY", False)
+
+
+def _complete(mod, rec):
+    return getattr(mod, "complete", lambda r: True)(rec)
 
 
 def _encode_numbers(run, config, dev, control):
-    w, h = config["width"], config["height"]
-    fw, fh = (w + 63) & ~63, (h + 63) & ~63
-    idt = torch.int16 if control else torch.int32
-    sweep = config["encoder"].get("mv_refine_mode") == "sweep"
-    qm, pvq_qm = stated_qm(config)
-    masking = config["encoder"].get("use_activity_masking", True)
-    out = {"sad_fields_off": 0, "coeffs_off": 0, "pvq_rows_off": 0,
-           "stages_missing": 0}
-    if sweep:
-        out["sweep_cells_off"] = 0
+    stages = run.capture.stages
+    out = {k: 0 for mod in stages.values() for k in mod.NUMBERS}
+    out["stages_missing"] = 0
     for f in run.sample:
         rec = run.capture.rec.get(f, {})
-        src = run.source(f)
-        need = ("front", "search") + (("sad",) if f > 0 else ()) + (
-            ("sweep",) if f > 0 and sweep else ())
-        if any(k not in rec for k in need) or "table" not in rec["search"]:
+        need = {name: mod for name, mod in stages.items()
+                if _needed(mod, f)}
+        if any(name not in rec or not _complete(mod, rec[name])
+               for name, mod in need.items()):
             out["stages_missing"] += 1
             continue
-        if f > 0:
-            s = rec["sad"]
-            out["sad_fields_off"] += _all_off(s["out"], [
-                RS.sad_fields(src[0], ref, s["pad"], s["vis"], s["nvmvbs"],
-                              s["nhmvbs"], s["r"], dev, idt)
-                for ref in s["refs"]])
-        if f > 0 and sweep:
-            out["sweep_cells_off"] += _sweep_off(rec["sweep"], src[0], w, h,
-                                                 dev, control)
-        fr = rec["front"]
-        planes = _front(src, fr, w, h, dev, idt)
-        out["coeffs_off"] += _all_off(fr["d"] + (fr["md"] or []),
-                                      planes[0] + (planes[1] or []))
-        sr = rec["search"]
-        d_in, md_in = _front(src, fr, w, h, dev, torch.int32) \
-            if control else planes
-        if control:
-            d_in = [bf16_round(p) for p in d_in]
-            md_in = None if md_in is None else [bf16_round(p) for p in md_in]
-        want = RP.search(d_in, md_in, fr["bsize"], qm, pvq_qm, sr["k1"],
-                         sr["split"], sr["quantizer"], sr["lam"], fw, fh,
-                         PLANE_DEC, sr["is_keyframe"], masking)
-        out["pvq_rows_off"] += rows_off(sr["table"], want)
+        frame = Frame(f, rec, run.source(f), config, dev, control)
+        for name, mod in need.items():
+            for k, v in mod.compare(rec[name], frame).items():
+                out[k] += v
     return out
-
-
-def stated_qm(config):
-    """The quantisation matrices that the configuration states, worked
-    out by the reference from its quant, its `qm` (1, Daala's default,
-    the HVS matrix; 0 flat) and its activity masking (on by default):
-    nothing of them is taken from the port."""
-    enc = config["encoder"]
-    return RV.stated_qm(config["quant"], enc.get("qm", 1) == 1,
-                        enc.get("use_activity_masking", True),
-                        len(PLANE_DEC))
-
-
-def _sweep_off(sw, cur, w, h, dev, control):
-    """Cell SADs of the sweep's leaf batches that differ from the
-    reference's OBMC prediction of the same leaves (the same MVs, corner
-    sources and splits) against the source luma."""
-    planes4 = sw["planes4"].to(dev)
-    cur_t = torch.from_numpy(np.ascontiguousarray(cur[:h, :w])).to(dev)
-    off = 0
-    for lms, pos, srcs, mvs, ocs, ss, got in sw["calls"]:
-        log_n = lms + 3
-        scal = torch.from_numpy(RO.leaf_args(
-            pos, srcs, mvs, ocs, ss, sw["pad"], log_n, log_n,
-            tuple(planes4.shape[1:]))).to(dev)
-        off += _count_off(got, RO.leaf_cells(planes4, cur_t, scal, log_n,
-                                             control))
-    return off
-
-
-def _front(src, fr, w, h, dev, dtype):
-    """The reference's (d, md) planes of a captured frame (md None on a
-    keyframe)."""
-    ref = RF.analyze(src, fr["bsize"], w, h, PLANE_DEC, fr["mc"], dev, dtype)
-    return (ref, None) if fr["mc"] is None else ref
-
-
-def bf16_round(p):
-    """An int32 plane with each value rounded to the nearest bfloat16,
-    back in int32: the data path of a search one precision below
-    float32."""
-    return p.to(torch.float32).to(torch.bfloat16).to(torch.float32) \
-        .round().to(torch.int32)
 
 
 def _decode_numbers(run, config, dev, control):
@@ -356,7 +237,7 @@ def _decode_numbers(run, config, dev, control):
         s = rec["synth"]
         want = RB.reconstruct(s["d"], s["bsize"], s["bskip"], s["levels"],
                               s["quantizer"], w, h, PLANE_DEC, dev, idt)
-        out["planes_off"] += _all_off(run.decoded[f], [
+        out["planes_off"] += all_off(run.decoded[f], [
             torch.from_numpy(p) for p in want])
     return out
 
@@ -374,4 +255,5 @@ def readings(run, config, dev, control=False):
 
 def check(run, config, dev):
     """{name: (value, limit)} of every compared number."""
-    return {k: (v, LIMITS[k]) for k, v in readings(run, config, dev).items()}
+    lim = limits(run.capture.stages)
+    return {k: (v, lim[k]) for k, v in readings(run, config, dev).items()}

@@ -7,8 +7,10 @@ window, for several seeds in one process.
 For each seed it runs the cell's window (as codecbench.run does, without
 tracing), then prints one JSON line: the seed, the sound readings (the
 numbers `check` compares, each against the port) and the control's
-(codecbench/check.py `readings(control=True)`: int16 lifting and sums,
-the PVQ search on bfloat16-rounded planes, put in the port's place).
+(codecbench/check.py `readings(control=True)`, each stage's one
+precision down: int16 lifting and sums, the PVQ search on
+bfloat16-rounded planes, the OBMC accumulator and the dering directions'
+costs in int16, put in the port's place).
 The control has to read above a limit on every seed; the sound readings
 on a dozen seeds and more set the lower end (PERF.md).  The benchmark's
 own runs never run it.

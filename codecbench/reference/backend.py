@@ -10,6 +10,9 @@ batched dering of models/restore.py with ops/dering.py's tables:
      variance thresholds, two filter passes; chroma on luma's
      directions) -> pixels (od_coeff_to_ref_buf) -> the picture's crop
 
+and the encoder's dering candidates (restore.py
+dering_candidates_device): every luma superblock at each of the 5 gains.
+
 `dtype` is the integer type of the synthesis' lifting: int32 as the
 codec states it, int16 for the control.
 """
@@ -104,9 +107,11 @@ def _const(table, device):
     return torch.from_numpy(np.ascontiguousarray(table)).to(device)
 
 
-def compute_dirs_var(x_orig, coeff_shift=4):
+def compute_dirs_var(x_orig, coeff_shift=4, wrap=_wrap32):
     """Vectorized od_dir_find8 over all 8x8 blocks of (..., n, n) blocks.
-    Returns (dirs, var) as (..., n//8, n//8) int32 tensors."""
+    Returns (dirs, var) as (..., n//8, n//8) int32 tensors.  `wrap` is
+    the width the costs accumulate in: int32 as the codec states it
+    (`_wrap16` for the control)."""
     *lead, n, _ = x_orig.shape
     nb = n // 8
     x = x_orig.to(torch.int32) >> coeff_shift
@@ -118,7 +123,7 @@ def compute_dirs_var(x_orig, coeff_shift=4):
     partial = (blocks.to(torch.float64) @ proj).to(torch.int64) \
         .reshape(*lead, nb, nb, 8, 15)
     w = _const(_COST_W.astype(np.int64), x.device)
-    cost = _wrap32((partial * partial * w).sum(-1))
+    cost = wrap((partial * partial * w).sum(-1))
     best_dir = torch.argmax(cost, dim=-1)  # the first maximum, as JAX's
     best_cost = cost.amax(dim=-1)
     # The reference's scan starts from best_cost=0/dir=0 and uses strict
@@ -126,7 +131,7 @@ def compute_dirs_var(x_orig, coeff_shift=4):
     best_dir = torch.where(best_cost > 0, best_dir, 0)
     best_cost = best_cost.clamp_min(0)
     opp = cost.gather(-1, ((best_dir + 4) & 7)[..., None])[..., 0]
-    var = _wrap32(best_cost - opp) >> 10
+    var = wrap(best_cost - opp) >> 10
     return best_dir.to(torch.int32), var.to(torch.int32)
 
 
@@ -308,6 +313,29 @@ def dering(ctmp, bskips, levels, quantizer, plane_dec, device):
             sby, sbx = divmod(int(i), nhdr)
             ctmp[pli][sby << ln:(sby << ln) + n,
                       sbx << ln:(sbx << ln) + n] = out[k]
+
+
+def dering_candidates(luma_i16, bskip0, quantizer, nvdr, nhdr,
+                      coeff_shift=4, device="cpu", wrap=_wrap32):
+    """The encoder's dering RDO candidates: every luma superblock
+    filtered at each of the 5 gains on the quantizer's base threshold.
+    Returns (cands, dirs): (nvdr*nhdr, 5, 64, 64) int16 and the
+    (nvdr*nhdr, 8, 8) int32 directions, in raster superblock order.
+    `wrap`: as compute_dirs_var's."""
+    B = OD_FILT_BORDER
+    inb = _sb_windows(luma_i16, nvdr, nhdr, 64, device)
+    x_orig = inb[:, B:B + 64, B:B + 64]
+    skip = torch.from_numpy(_per_superblock(_skip_blocks(
+        bskip0, nvdr, nhdr, 0), nvdr, nhdr)).to(device).bool()
+    base_threshold = float(quantizer) ** 0.84182
+    t0s = torch.tensor([int(g * base_threshold)
+                        for g in OD_DERING_GAIN_TABLE[1:]],
+                       dtype=torch.int32, device=device)
+    dirs, var = compute_dirs_var(x_orig, coeff_shift, wrap)
+    th = _luma_thresholds(var[:, None], t0s[None, :, None, None],
+                          skip[:, None])
+    return dering_filter(inb[:, None], x_orig[:, None], dirs[:, None], th,
+                         3), dirs
 
 
 def synthesize(d, bsize, fw, fh, pic_w, pic_h, xdec, ydec, device, dtype):

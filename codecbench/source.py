@@ -5,7 +5,11 @@ clips of bench.py's 1080p encode), with every random draw taken from
 the seed: the translation clip's noise and the phases of its patterns,
 the natural clip's textures and grain.  The seed changes what the
 pixels hold, never the shapes of the work: the sizes, the motion and
-the textures' spectra are the same for every seed.
+the textures' spectra are the same for every seed.  A mix may fix the
+natural clip's textures with `texture_seed`: the seed then draws only
+the grain, so that every seed asks the encoder for the same work (with
+the textures drawn from the seed, a 1080p window's rate moved by up to
+8% from seed to seed where one seed's runs agreed within 5%).
 
 A mix plays its clip forward and then back (frames 0 .. L-1 .. 1, 0,
 ...), so that the motion stays continuous however many frames a window
@@ -55,17 +59,21 @@ def _octave_noise(shape, rng, octaves=((3, 60), (9, 45), (27, 35))):
     return acc
 
 
-def natural_clip(w, h, nframes, seed, grain=3.0):
+def natural_clip(w, h, nframes, seed, grain=3.0, texture_seed=None):
     """A natural-statistics clip, 4:2:0 8-bit: a textured background with
     a nearer layer, a slow non-integer pan, a foreground occluder with
-    its own motion, luminance flicker and fresh film grain each frame."""
+    its own motion, luminance flicker and fresh film grain each frame.
+    The textures come from `texture_seed` where it is given, else from
+    the seed; the grain always from the seed."""
     rng = np.random.default_rng(seed)
+    tseed = seed if texture_seed is None else texture_seed
+    tex = rng if texture_seed is None else np.random.default_rng(tseed)
     pad = 96
     wp, hp = w + 2 * pad, h + 2 * pad
     yy, xx = np.mgrid[0:hp, 0:wp]
     bg = (120 + 40 * np.sin(xx / 171.0) + 25 * np.cos(yy / 133.0)
-          + _octave_noise((hp, wp), rng))
-    fgtex = 140 + _octave_noise((hp, wp), np.random.default_rng(seed + 1),
+          + _octave_noise((hp, wp), tex))
+    fgtex = 140 + _octave_noise((hp, wp), np.random.default_rng(tseed + 1),
                                 octaves=((3, 80), (15, 50)))
     oy, ox = np.mgrid[0:h // 2, 0:w // 2]
     blob = (((oy - h / 4.0) / (h / 4.0)) ** 2
@@ -95,12 +103,14 @@ def natural_clip(w, h, nframes, seed, grain=3.0):
 CONTENTS = {"translation": translation_clip, "natural": natural_clip}
 
 
-def make_clip(content, w, h, nframes, seed):
-    """The mix's clip: `content` names one of CONTENTS."""
+def make_clip(content, w, h, nframes, seed, texture_seed=None):
+    """The mix's clip: `content` names one of CONTENTS; `texture_seed`,
+    the mix's key of that name, is passed on where it is given."""
     if content not in CONTENTS:
         raise ValueError("unknown content %r (have %s)"
                          % (content, ", ".join(sorted(CONTENTS))))
-    return CONTENTS[content](w, h, nframes, seed)
+    opts = {} if texture_seed is None else {"texture_seed": texture_seed}
+    return CONTENTS[content](w, h, nframes, seed, **opts)
 
 
 def palindrome(nframes, i):

@@ -21,15 +21,16 @@ def pytest_configure(config):
 
 def make_root(path, size=64):
     """A root at `path` with the benchmark's configurations, mixes,
-    metric readers and kernel counts, and a BENCHMARK.json holding the
-    real cells plus `tiny-*` cells of size x size copies of the
-    configurations."""
-    for kind in ("configs", "mixes", "metrics", "kernels"):
+    metric readers, kernel counts and check stages, and a BENCHMARK.json
+    holding the real cells plus `tiny-*` cells of size x size copies of
+    the configurations."""
+    for kind in ("configs", "mixes", "metrics", "kernels", "stages"):
         shutil.copytree(os.path.join(REPO, "codecbench", kind),
                         os.path.join(path, "codecbench", kind))
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
-    for name, real in (("tiny", "lean_1080p"), ("tinysweep", "sweep_1080p")):
+    for name, real in (("tiny", "lean_1080p"), ("tinysweep", "sweep_1080p"),
+                       ("tinyanalysis", "analysis_1080p")):
         with open(os.path.join(REPO, "codecbench", "configs",
                                real + ".json")) as f:
             cfg = json.load(f)
@@ -43,9 +44,11 @@ def make_root(path, size=64):
                                  "why": "test"})
     like = {"tiny-translation": ("tiny", "translation",
                                  "lean1080-translation"),
-            "tiny-natural": ("tiny", "natural", "lean1080-natural"),
+            "tiny-natural": ("tiny", "natural", "lean1080-translation"),
             "tiny-play": ("tiny", "play", "lean1080-play"),
-            "tiny-sweep": ("tinysweep", "natural", "sweep1080-natural")}
+            "tiny-sweep": ("tinysweep", "natural", "sweep1080-natural"),
+            "tiny-analysis": ("tinyanalysis", "translation",
+                              "analysis1080-translation")}
     for name, (cfg, mix, real) in like.items():
         bench["workloads"].append({"name": name, "config": cfg,
                                    "traffic": mix, "chips": 1,

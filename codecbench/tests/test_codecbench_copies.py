@@ -145,13 +145,14 @@ def test_stated_qm_is_the_ports():
     configuration alone, are those that the port's encoder codes a
     keyframe with."""
     import json
-    from codecbench import check, source, window
+    from codecbench import source, window
+    from codecbench.stages import search
     with open(os.path.join(REPO, "codecbench", "configs",
                            "lean_1080p.json")) as f:
         cfg = json.load(f)
     cfg["width"] = cfg["height"] = 64
     enc = window.new_encoder(cfg, torch.device("cpu"))
     enc.encode_frame(source.make_clip("translation", 64, 64, 1, 3)[0])
-    qm, pvq_qm = check.stated_qm(cfg)
+    qm, pvq_qm = search.stated_qm(cfg)
     np.testing.assert_array_equal(qm, enc.state.qm)
     np.testing.assert_array_equal(pvq_qm, np.array(enc.state.pvq_qm_q4[:3]))

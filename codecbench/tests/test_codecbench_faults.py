@@ -74,6 +74,24 @@ def _alter_synthesis(mod):
         return out
     return "synthesize_frame", f
 
+def _alter_pyramid(mod):
+    orig = mod.analyze_rdo_pyramid
+
+    def f(*a, **k):
+        d, md, merged = orig(*a, **k)
+        d[2][3, 5] += 1
+        return d, md, merged
+    return "analyze_rdo_pyramid", f
+
+
+def _alter_dering_cand(mod):
+    orig = mod.dering_candidates_device
+
+    def f(*a, **k):
+        cands, dirs = orig(*a, **k)
+        cands[0, 4, 9, 9] += 1
+        return cands, dirs
+    return "dering_candidates_device", f
 
 
 @pytest.mark.parametrize("workload,module,fault,number", [
@@ -82,6 +100,8 @@ def _alter_synthesis(mod):
     ("tiny-translation", "pvqsearch", _alter_pulse, "pvq_rows_off"),
     ("tiny-sweep", "mesweep", _alter_leaf_cells, "sweep_cells_off"),
     ("tiny-play", "synthesis", _alter_synthesis, "planes_off"),
+    ("tiny-analysis", "keyframe", _alter_pyramid, "rdo_pyramid_off"),
+    ("tiny-analysis", "restore", _alter_dering_cand, "dering_cands_off"),
 ])
 def test_altered_answer_fails(tiny_root, monkeypatch, workload, module,
                               fault, number):
@@ -135,20 +155,23 @@ def test_unseen_layer_fails(tiny_root, monkeypatch):
 
 def test_control_reads_above_every_limit_it_covers(tiny_root):
     """The reference one precision down (int16 lifting and sums, the PVQ
-    search on bfloat16 planes) in the port's place fails its numbers."""
+    search on bfloat16 planes, the dering directions' costs in int16) in
+    the port's place fails its numbers."""
     from codecbench import check as C
     from codecbench import window as W
     for workload, numbers in (
             ("tiny-translation", ("sad_fields_off", "coeffs_off",
                                   "pvq_rows_off")),
             ("tiny-sweep", ("sweep_cells_off",)),
-            ("tiny-play", ("planes_off",))):
+            ("tiny-play", ("planes_off",)),
+            ("tiny-analysis", ("rdo_pyramid_off", "dering_cands_off"))):
         bench, cell, config, mix = R.resolve_cell(tiny_root, workload)
         dev = torch.device("cpu")
         run = W.run_window(config, mix, SEED, 0.3, False, dev,
                            time.perf_counter(), tiny_root)
         sound = C.readings(run, config, dev)
         low = C.readings(run, config, dev, control=True)
+        lim = C.limits(run.capture.stages)
         for k in numbers:
-            assert sound[k] <= C.LIMITS[k] < low[k], (k, sound, low)
+            assert sound[k] <= lim[k] < low[k], (k, sound, low)
     assert np.isfinite(sum(low.values()))

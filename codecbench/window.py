@@ -75,25 +75,40 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def new_encoder(config, dev):
+def _tuples(v):
+    """JSON's lists as the tuples that headers.Info holds."""
+    return tuple(map(_tuples, v)) if isinstance(v, list) else v
+
+
+def stream_info(config):
+    """The stream's headers.Info: the picture's size and the
+    configuration's optional `info`, further fields of headers.Info
+    (bit depth, full-precision references, planes)."""
     from daala_tpu_torch.codec import headers
+    extra = {k: _tuples(v) for k, v in config.get("info", {}).items()}
+    return headers.Info(pic_width=config["width"],
+                        pic_height=config["height"], **extra)
+
+
+def new_encoder(config, dev):
+    """The configuration's Encoder: its keywords (`encoder`), then its
+    optional `attributes`, the switches the Encoder takes as attributes
+    after construction (b_frames, mv_res_min, ...), as the port's CLI
+    sets them."""
     from daala_tpu_torch.codec.encoder import Encoder
-    info = headers.Info(pic_width=config["width"],
-                        pic_height=config["height"])
-    enc = Encoder(info, quant=config["quant"],
+    enc = Encoder(stream_info(config), quant=config["quant"],
                   complexity=config["complexity"], device=str(dev),
                   **config["encoder"])
     enc.keyframe_rate = config["keyframe_rate"]
     enc.enable_encoder_check = bool(config["encoder_check"])
+    for k, v in config.get("attributes", {}).items():
+        setattr(enc, k, v)
     return enc
 
 
 def new_decoder(config, dev):
-    from daala_tpu_torch.codec import headers
     from daala_tpu_torch.codec.decoder import Decoder
-    info = headers.Info(pic_width=config["width"],
-                        pic_height=config["height"])
-    return Decoder(info, device=str(dev))
+    return Decoder(stream_info(config), device=str(dev))
 
 
 def luma_psnr(got, want):
@@ -105,7 +120,8 @@ def run_window(config, mix, seed, seconds, trace, dev, t_start, root="."):
     """Set up, warm up and run the mix's window; returns a Run."""
     from daala_tpu_torch.utils import devstats
     w, h = config["width"], config["height"]
-    clip = S.make_clip(mix["content"], w, h, mix["clip_frames"], seed)
+    clip = S.make_clip(mix["content"], w, h, mix["clip_frames"], seed,
+                       mix.get("texture_seed"))
     run = Run(mix["mode"], dev, root)
     run.source = lambda i: clip[S.palindrome(len(clip), i)]
     if run.mode == "encode":
@@ -173,7 +189,8 @@ def _encode_window(run, config, mix, seed, seconds, trace, dev, t_start,
     del warm
     within = mix["checked_within"]
     run.sample = C.sample_frames(seed, within, mix["checked_frames"])
-    cap = run.capture = C.Capture(run.sample)
+    cap = run.capture = C.Capture(run.sample,
+                                  C.load_stages(run.root, config))
     cap.install_encode()
     enc = new_encoder(config, dev)
     packets, recons = [], []
